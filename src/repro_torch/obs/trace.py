@@ -1,0 +1,207 @@
+"""Span/event tracer with Chrome/Perfetto trace-event export.
+
+The flight recorder's timing layer. A :class:`Tracer` records *spans*
+(named intervals with wall-clock duration and an optional sim-clock
+stamp) and *instant events* into a bounded ring buffer, and exports
+them as Chrome trace-event JSON — the format ``chrome://tracing`` and
+https://ui.perfetto.dev load directly.
+
+Two clocks, deliberately:
+
+- **wall clock** (``time.perf_counter`` relative to the tracer's
+  epoch) is the ``ts``/``dur`` axis of every exported event, in
+  microseconds — that is what the trace viewers plot;
+- **sim clock** (the scheduler's ``now``) rides along in ``args``
+  as ``sim_t_s`` so a span can be joined back to the simulated
+  timeline it belongs to.
+
+The process-wide default is :data:`NULL_TRACER`: every ``span()`` on
+it returns one cached no-op context manager, so uninstrumented runs
+allocate nothing per call and stay bitwise-identical to pre-obs
+behavior. ``install()`` swaps in a live :class:`Tracer`;
+``repro_torch.obs.recording()`` is the supported way to do that with
+restore-on-exit semantics.
+"""
+
+from __future__ import annotations
+
+import collections
+import time
+from typing import Any, Deque, Dict, List, Optional
+
+# Bumped when the exported event shape changes; pinned by tests so a
+# viewer-breaking change is a conscious decision, not drift.
+TRACE_SCHEMA_VERSION = 1
+
+# Every exported event carries exactly these keys (uniform shape keeps
+# the export trivially diffable and lets tests pin the schema).
+TRACE_EVENT_KEYS = ("name", "cat", "ph", "ts", "dur", "pid", "tid", "args")
+
+# Synthetic pid/tid lanes: the recorder is single-process, so pid/tid
+# are namespaces, not OS ids. pid 1 = live spans/events, pid 2 = the
+# reconstructed per-node timeline (see obs/timeline.py).
+TRACE_PID = 1
+TRACE_TID = 1
+TIMELINE_PID = 2
+
+
+class Span:
+    """One in-flight interval; close it (or use ``with``) to record."""
+
+    __slots__ = ("_tracer", "name", "cat", "args", "_t0_s", "_done")
+
+    def __init__(self, tracer: "Tracer", name: str, cat: str,
+                 args: Dict[str, Any]):
+        self._tracer = tracer
+        self.name = name
+        self.cat = cat
+        self.args = args
+        self._t0_s = time.perf_counter()
+        self._done = False
+
+    def __enter__(self) -> "Span":
+        return self
+
+    def __exit__(self, *exc_info: object) -> None:
+        self.close()
+
+    def close(self) -> None:
+        if self._done:  # idempotent: with-block plus explicit close
+            return
+        self._done = True
+        t1_s = time.perf_counter()
+        self._tracer._record(
+            self.name, self.cat, "X",
+            self._t0_s, t1_s - self._t0_s, self.args,
+        )
+
+
+class _NullSpan:
+    """The no-op span: one shared instance, zero per-call allocation."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> "_NullSpan":
+        return self
+
+    def __exit__(self, *exc_info: object) -> None:
+        return None
+
+    def close(self) -> None:
+        return None
+
+
+_NULL_SPAN = _NullSpan()
+
+
+class Tracer:
+    """Ring-buffered span/event recorder.
+
+    ``capacity`` bounds memory on long runs: the deque drops the oldest
+    events and ``n_dropped`` reports how many were lost, so a truncated
+    trace is visible rather than silent.
+    """
+
+    enabled = True
+
+    def __init__(self, capacity: int = 65536):
+        self.capacity = int(capacity)
+        self._events: Deque[Dict[str, Any]] = collections.deque(
+            maxlen=self.capacity
+        )
+        self._epoch_s = time.perf_counter()
+        self.n_total = 0
+
+    # -- recording ---------------------------------------------------
+
+    def span(self, name: str, *, cat: str = "repro",
+             sim_t_s: Optional[float] = None, **args: Any) -> Span:
+        if sim_t_s is not None:
+            args["sim_t_s"] = sim_t_s
+        return Span(self, name, cat, args)
+
+    def event(self, name: str, *, cat: str = "repro",
+              sim_t_s: Optional[float] = None, **args: Any) -> None:
+        if sim_t_s is not None:
+            args["sim_t_s"] = sim_t_s
+        t_s = time.perf_counter()
+        self._record(name, cat, "i", t_s, 0.0, args)
+
+    def _record(self, name: str, cat: str, ph: str, t0_s: float,
+                dur_s: float, args: Dict[str, Any]) -> None:
+        self.n_total += 1
+        self._events.append({
+            "name": name,
+            "cat": cat,
+            "ph": ph,
+            "ts": (t0_s - self._epoch_s) * 1e6,
+            "dur": dur_s * 1e6,
+            "pid": TRACE_PID,
+            "tid": TRACE_TID,
+            "args": args,
+        })
+
+    # -- inspection / export ----------------------------------------
+
+    def __len__(self) -> int:
+        return len(self._events)
+
+    @property
+    def n_dropped(self) -> int:
+        return self.n_total - len(self._events)
+
+    def events(self) -> List[Dict[str, Any]]:
+        return list(self._events)
+
+    def export(self) -> Dict[str, Any]:
+        """Chrome trace-event JSON: ``{"traceEvents": [...]}``.
+
+        Extra top-level keys are legal in the format, so callers may
+        merge this dict with metrics/timeline payloads and the result
+        stays loadable in Perfetto.
+        """
+        return {"traceEvents": self.events()}
+
+
+class NullTracer:
+    """The default: records nothing, costs (almost) nothing."""
+
+    enabled = False
+    capacity = 0
+    n_total = 0
+    n_dropped = 0
+
+    def span(self, name: str, *, cat: str = "repro",
+             sim_t_s: Optional[float] = None, **args: Any) -> _NullSpan:
+        return _NULL_SPAN
+
+    def event(self, name: str, *, cat: str = "repro",
+              sim_t_s: Optional[float] = None, **args: Any) -> None:
+        return None
+
+    def __len__(self) -> int:
+        return 0
+
+    def events(self) -> List[Dict[str, Any]]:
+        return []
+
+    def export(self) -> Dict[str, Any]:
+        return {"traceEvents": []}
+
+
+NULL_TRACER = NullTracer()
+
+_CURRENT: Any = NULL_TRACER
+
+
+def current() -> Any:
+    """The process-wide tracer (``NULL_TRACER`` unless recording)."""
+    return _CURRENT
+
+
+def install(tracer: Any) -> Any:
+    """Swap the process-wide tracer; returns the previous one."""
+    global _CURRENT
+    prev = _CURRENT
+    _CURRENT = tracer if tracer is not None else NULL_TRACER
+    return prev

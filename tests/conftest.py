@@ -35,6 +35,10 @@ def pytest_configure(config):
         "slow: long-running (full sweeps, multi-fit CV, subprocess device "
         "checks); deselect with -m 'not slow' for the sub-minute loop",
     )
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA device (the port's Hopper kernels); skips without one",
+    )
 
 
 # ---------------------------------------------------------------------------
