@@ -1,0 +1,68 @@
+"""Architecture registry plumbing, the reference's ``configs/base.py``:
+shape cells and the ``ArchDef`` adapter over the model entry points.
+
+Every architecture module exports an ``ArchDef`` with a FULL config (the
+published spec) and a SMOKE config (same family, tiny dims). The port
+carries the decoder-only LM entry points; the encoder-decoder family waits
+(ROADMAP A8).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch.models import lm
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    name: str
+    seq: int
+    batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES: Dict[str, ShapeCell] = {
+    "train_4k": ShapeCell("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeCell("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeCell("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeCell("long_500k", 524288, 1, "decode"),
+}
+
+
+@dataclasses.dataclass
+class ArchDef:
+    """Uniform adapter over the LM entry points."""
+
+    arch_id: str
+    family: str  # moe | dense | vlm | hybrid | audio | ssm
+    full: Any  # LMConfig
+    smoke: Any
+    long_500k_ok: bool
+    notes: str = ""
+
+    def init(self, generator: torch.Generator, cfg=None, *, device=None) -> lm.LM:
+        """Random weights drawn from ``generator`` on ``device`` (the
+        generator's device when None)."""
+        cfg = cfg or self.full
+        return lm.init(cfg, generator=generator,
+                       device=generator.device if device is None else device)
+
+    def forward(self, cfg, model, batch, *, impl: Optional[str] = None):
+        logits, _ = lm.forward(cfg, model, batch["tokens"], batch.get("images"),
+                               impl=impl)
+        return logits
+
+    def prefill(self, cfg, model, batch, *, max_cache_len: int,
+                impl: Optional[str] = None):
+        return lm.prefill(cfg, model, batch["tokens"], max_cache_len=max_cache_len,
+                          images=batch.get("images"), impl=impl)
+
+    def init_caches(self, cfg, batch: int, max_len: int, *, device):
+        return lm.init_caches(cfg, batch, max_len, device)
+
+    def decode_step(self, cfg, model, caches, token, *, impl: Optional[str] = None):
+        return lm.decode_step(cfg, model, caches, token, impl=impl)

@@ -1,9 +1,11 @@
-"""Carry fitted models across from the JAX reference package.
+"""Carry fitted models and model weights across from the JAX reference.
 
 The port never imports the reference; these functions take the reference
 objects' fields as plain numbers and numpy arrays, so a test can install a
 reference fit into the port's engine (``PlanningEngine.install_fit``) and
-compare the Gram builds and grid sweeps apart from the KKT fit.
+compare the Gram builds and grid sweeps apart from the KKT fit, or load a
+reference LM's weights into the port's modules and compare the two
+packages' logits and caches.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 from repro_torch.core.power import PowerModel
 from repro_torch.core.svr import SVRParams
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import lm
 
 
 def power_model_from_reference(coeffs: Sequence[float]) -> PowerModel:
@@ -46,3 +49,59 @@ def svr_params_from_reference(
         y_std=float(fields["y_std"]),
         log_target=bool(fields["log_target"]),
     )
+
+
+def flatten_reference(tree, prefix: str = "") -> dict:
+    """A reference parameter pytree (nested dicts of arrays) as
+    {dotted path: numpy array}, the port's ``state_dict`` naming."""
+    out = {}
+    if isinstance(tree, Mapping):
+        for k in sorted(tree):
+            out.update(flatten_reference(tree[k], f"{prefix}{k}."))
+        return out
+    return {prefix[:-1]: np.asarray(tree)}
+
+
+def load_reference_params(module: torch.nn.Module, values: Mapping[str, Any]):
+    """Copy {dotted path: array} into ``module``'s parameters of the same
+    names, cast to each parameter's dtype; a leaf without a parameter, a
+    parameter without a leaf, or a shape that differs raises."""
+    state = module.state_dict()
+    if set(values) != set(state):
+        raise ValueError(
+            f"reference leaves without a port parameter: {sorted(set(values) - set(state))}; "
+            f"port parameters without a leaf: {sorted(set(state) - set(values))}")
+    with torch.no_grad():
+        for name, tensor in state.items():
+            arr = np.asarray(values[name])
+            if tuple(arr.shape) != tuple(tensor.shape):
+                raise ValueError(f"{name}: shape {arr.shape} != {tuple(tensor.shape)}")
+            # through float32: numpy has no bfloat16; the values are exact in it
+            tensor.copy_(torch.from_numpy(np.array(arr, np.float32)).to(tensor.dtype))
+    return module
+
+
+def lm_params_from_reference(params: Mapping[str, Any], cfg: lm.LMConfig,
+                             device: DeviceLike = None) -> lm.LM:
+    """A reference ``lm.init`` pytree (its leaves as numpy arrays) as the
+    port's ``lm.LM`` on ``device``.
+
+    ``params["blocks"][i]`` holds pattern position i's weights stacked over
+    ``n_groups``; group g's slice becomes layer ``g * len(pattern) + i``.
+    The names below a block are the reference's keys, so every leaf lands
+    on the parameter of the same path.
+    """
+    dev = resolve_device(device)
+    model = lm.init(cfg, generator=torch.Generator(device=dev), device=dev)
+    n_pat = len(cfg.pattern)
+    values = flatten_reference({k: v for k, v in params.items() if k != "blocks"})
+    if len(params["blocks"]) != n_pat:
+        raise ValueError(f"{len(params['blocks'])} block stacks for pattern {cfg.pattern}")
+    for i, stack in enumerate(params["blocks"]):
+        for path, arr in flatten_reference(stack).items():
+            if arr.shape[0] != cfg.n_groups:
+                raise ValueError(f"blocks[{i}].{path}: leading axis {arr.shape[0]} "
+                                 f"!= n_groups {cfg.n_groups}")
+            for g in range(cfg.n_groups):
+                values[f"blocks.{g * n_pat + i}.{path}"] = arr[g]
+    return load_reference_params(model, values)

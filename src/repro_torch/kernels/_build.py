@@ -33,7 +33,10 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-LAUNCHES: Dict[str, int] = {"rbf_gram": 0, "plan_argmin": 0, "pareto_mask": 0}
+LAUNCHES: Dict[str, int] = {
+    "rbf_gram": 0, "plan_argmin": 0, "pareto_mask": 0,
+    "flash_attention": 0, "ssd_chunks": 0,
+}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -45,6 +48,14 @@ _SIGNATURES = {
     "plan_argmin_launch": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
     # t, e, mask, out, B, G, device, stream
     "pareto_mask_launch": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # q, k, v, o, b, h, hk, sq, skv, d, is_bf16, scale, causal, window,
+    # kv_len, q_offset, device, stream
+    "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I,
+                               _I, _I, _I, _P],
+    # x, dt, a, B, C, y, states, c_decay, chunk_decay, b, h, g, nc, T, p, n,
+    # device, stream
+    "ssd_chunks_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                          _I, _P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None

@@ -19,8 +19,10 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.plan_grid import pareto_mask_cuda, plan_argmin_cuda
 from repro_torch.kernels.rbf_gram import rbf_gram_cuda
+from repro_torch.kernels.ssd_scan import ssd_chunks_cuda
 
 LAUNCHES = _build.LAUNCHES
 reset_launches = _build.reset_launches
@@ -89,3 +91,78 @@ def pareto_mask(t, e, mask, *, impl: Optional[str] = None) -> torch.Tensor:
     if not use_kernel(t, impl):
         return ref.pareto_mask_ref(t, e, m)
     return pareto_mask_cuda(t, e, m)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
+                    scale: Optional[float] = None, q_offset: int = 0,
+                    kv_len: Optional[int] = None, impl: Optional[str] = None) -> torch.Tensor:
+    """Multi-head attention, GQA-aware: q (b, h, sq, d), k/v (b, hk, skv, d)
+    -> (b, h, sq, d) in q's dtype.
+
+    ``q_offset`` and ``kv_len`` are plain ints (the host knows a decode
+    step's position), so on the card prefill and decode both launch the
+    kernel.
+    """
+    if not use_kernel(q, impl):
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window, scale=scale,
+                                       q_offset=q_offset, kv_len=kv_len)
+    return flash_attention_cuda(
+        q.contiguous(), k.contiguous(), v.contiguous(), causal=causal, window=window,
+        scale=scale, q_offset=q_offset, kv_len=kv_len)
+
+
+def ssd_chunks(x, dt, a, B, C, *, heads: int, impl: Optional[str] = None):
+    """The SSD intra-chunk block of every (b·h, chunk); see
+    ``ref.ssd_chunks_ref`` for the shapes and outputs."""
+    if not use_kernel(x, impl):
+        return ref.ssd_chunks_ref(x, dt, a, B, C, heads=heads)
+    return ssd_chunks_cuda(x, dt, a, B, C, heads=heads)
+
+
+def ssd_scan_chunked(x, dt, A, B, C, *, chunk: int, return_state: bool = False):
+    """Chunked SSD around ``ssd_chunks``, as the reference's
+    ``_ssd_pallas_impl``: pad s to a multiple of ``chunk``, lay x and dt out
+    per (b·h, chunk) with A tiled over the batch, run the chunk block, then
+    the inter-chunk recurrence and the state-output product as torch ops.
+    B and C stay (b, s, g, n): the chunk block reads them per group."""
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    pad = (-s) % chunk
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = torch.nn.functional.pad(dt, (0, 0, 0, pad))
+        B = torch.nn.functional.pad(B, (0, 0, 0, 0, 0, pad))
+        C = torch.nn.functional.pad(C, (0, 0, 0, 0, 0, pad))
+    nc = x.shape[1] // chunk
+    xc = x.movedim(2, 1).reshape(b * h, nc, chunk, p).float().contiguous()
+    dtc = dt.movedim(2, 1).reshape(b * h, nc, chunk).float().contiguous()
+    a = (dtc * A.float().repeat(b)[:, None, None]).contiguous()
+    y_intra, states, c_decay, chunk_decay = ssd_chunks(
+        xc, dtc, a, B.float().contiguous(), C.float().contiguous(), heads=h)
+    hprev = torch.zeros((b * h, n, p), dtype=torch.float32, device=x.device)
+    h_prevs = []
+    for c in range(nc):  # sequential over chunks, tiny
+        h_prevs.append(hprev)
+        hprev = hprev * chunk_decay[:, c] + states[:, c]
+    y_state = c_decay @ torch.stack(h_prevs, dim=1)  # (bh, nc, T, n) @ (bh, nc, n, p)
+    y = (y_intra + y_state).reshape(b, h, nc * chunk, p).movedim(1, 2)[:, :s].to(x.dtype)
+    if return_state:
+        return y, hprev.reshape(b, h, n, p)
+    return y
+
+
+def ssd_scan(x, dt, A, B, C, *, chunk: int = 128, return_state: bool = False,
+             impl: Optional[str] = None):
+    """Chunked Mamba2 SSD: x (b, s, h, p), dt (b, s, h), A (h,), B/C
+    (b, s, g, n) -> y (b, s, h, p) [, final state (b, h, n, p) f32].
+
+    A CPU tensor or ``impl="ref"`` takes the plain ``ref.ssd_scan_ref``
+    (where the reference routes its jnp oracle); a CUDA tensor takes
+    ``ssd_scan_chunked`` around the Hopper chunk kernel.
+    """
+    if not use_kernel(x, impl):
+        return ref.ssd_scan_ref(x, dt, A, B, C, chunk=chunk, return_state=return_state)
+    return ssd_scan_chunked(x, dt, A, B, C, chunk=chunk, return_state=return_state)
+
+
+ssm_decode_step = ref.ssm_decode_step  # the recurrent step is plain torch, as in the reference

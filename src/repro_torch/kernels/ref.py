@@ -2,14 +2,20 @@
 
 They are the CPU compute path (``ops.py`` sends CPU tensors here), the
 ground truth the kernels are held against on the card, and the parity
-target of the CPU tests against the JAX package. Each one computes the
-same expression, in the same order, as its kernel under ``csrc/``: sums
-over the feature axis are taken left to right one elementwise op at a time
-(so no matmul or reduction reorders them), and ``T^k`` goes through
-``tpow``, never ``torch.pow``.
+target of the CPU tests against the JAX package.
+
+The planning kernels' versions compute the same expression, in the same
+order, as their kernels under ``csrc/``: sums over the feature axis are
+taken left to right one elementwise op at a time (so no matmul or
+reduction reorders them), and ``T^k`` goes through ``tpow``, never
+``torch.pow``. The attention and SSD versions mirror the reference's jnp
+oracles (chunked online softmax, chunked SSD) in float32; their kernels
+sum in another order, so they agree within a stated tolerance.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -104,3 +110,246 @@ def pareto_mask_ref(
     if not out:
         return torch.zeros_like(feas)
     return torch.cat(out)
+
+
+# ---------------------------------------------------------------------------
+# Attention (plain versions of csrc/flash_attention.cu)
+# ---------------------------------------------------------------------------
+
+
+def _attn_mask(q_pos, k_pos, causal: bool, window: Optional[int],
+               kv_len: Optional[int]) -> torch.Tensor:
+    """True where attention is allowed, (bq, bk)."""
+    m = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool,
+                   device=q_pos.device)
+    if causal:
+        m &= q_pos[:, None] >= k_pos[None, :]
+    if window is not None:
+        m &= (q_pos[:, None] - k_pos[None, :]) < window
+    if kv_len is not None:
+        m &= k_pos[None, :] < kv_len
+    return m
+
+
+def flash_attention_ref(
+    q: torch.Tensor,  # (b, h, sq, d)
+    k: torch.Tensor,  # (b, hk, skv, d)
+    v: torch.Tensor,  # (b, hk, skv, d)
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+    q_offset: int = 0,
+    kv_len: Optional[int] = None,
+    block_q: int = 512,
+    block_k: int = 512,
+) -> torch.Tensor:
+    """Chunked online-softmax attention with GQA (hk | h), in float32.
+
+    The reference's ``flash_attention_ref``: q chunks (outer) by kv chunks
+    (inner) with a running (max, sum, acc) carry, masked scores at -inf,
+    a fully masked row gives 0. Queries sit at positions
+    ``q_offset .. q_offset + sq``; keys at or past ``kv_len`` are masked.
+    Output in q's dtype.
+    """
+    b, h, sq, d = q.shape
+    _, hk, skv, _ = k.shape
+    if h % hk:
+        raise ValueError(f"{h} query heads are not a multiple of {hk} kv heads")
+    groups = h // hk
+    if scale is None:
+        scale = 1.0 / (d**0.5)
+    bq = min(block_q, sq)
+    bk = min(block_k, skv)
+    pq = (-sq) % bq
+    pk = (-skv) % bk
+    qp = torch.nn.functional.pad(q, (0, 0, 0, pq)) if pq else q
+    kp = torch.nn.functional.pad(k, (0, 0, 0, pk)) if pk else k
+    vp = torch.nn.functional.pad(v, (0, 0, 0, pk)) if pk else v
+    nq, nk = qp.shape[2] // bq, kp.shape[2] // bk
+    eff_kv_len = skv if (pk or kv_len is not None) else None
+    if kv_len is not None:
+        eff_kv_len = kv_len
+    dev = q.device
+    qs = qp.reshape(b, hk, groups, nq, bq, d)
+    ks = kp.reshape(b, hk, nk, bk, d)
+    vs = vp.reshape(b, hk, nk, bk, d)
+    outs = []
+    for iq in range(nq):
+        q_blk = qs[:, :, :, iq].float()  # (b, hk, g, bq, d)
+        q_pos = q_offset + iq * bq + torch.arange(bq, device=dev)
+        acc = torch.zeros((b, hk, groups, bq, d), dtype=torch.float32, device=dev)
+        m = torch.full((b, hk, groups, bq), float("-inf"), device=dev)
+        l = torch.zeros((b, hk, groups, bq), dtype=torch.float32, device=dev)
+        for ik in range(nk):
+            k_blk = ks[:, :, ik].float()  # (b, hk, bk, d)
+            v_blk = vs[:, :, ik].float()
+            k_pos = ik * bk + torch.arange(bk, device=dev)
+            s = torch.einsum("bkgqd,bkcd->bkgqc", q_blk, k_blk) * scale
+            mask = _attn_mask(q_pos, k_pos, causal, window, eff_kv_len)
+            s = torch.where(mask, s, float("-inf"))
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+            p = torch.exp(s - m_safe[..., None])
+            p = torch.where(mask, p, 0.0)
+            corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum("bkgqc,bkcd->bkgqd", p, v_blk)
+            m = m_new
+        outs.append((acc / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype))
+    out = torch.stack(outs, dim=3).reshape(b, hk, groups, nq * bq, d)
+    return out[..., :sq, :].reshape(b, h, sq, d)
+
+
+def mha_naive_ref(q, k, v, *, causal=True, window=None, scale=None, q_offset=0,
+                  kv_len=None) -> torch.Tensor:
+    """O(s^2)-memory attention for tests at small shapes."""
+    b, h, sq, d = q.shape
+    _, hk, skv, _ = k.shape
+    groups = h // hk
+    if scale is None:
+        scale = 1.0 / (d**0.5)
+    kq = torch.repeat_interleave(k, groups, dim=1).float()
+    vq = torch.repeat_interleave(v, groups, dim=1).float()
+    s = torch.einsum("bhqd,bhcd->bhqc", q.float(), kq) * scale
+    q_pos = q_offset + torch.arange(sq, device=q.device)
+    k_pos = torch.arange(skv, device=q.device)
+    mask = _attn_mask(q_pos, k_pos, causal, window, kv_len)
+    s = torch.where(mask, s, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(torch.isnan(p), 0.0, p)
+    return torch.einsum("bhqc,bhcd->bhqd", p, vq).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 SSD (plain versions of csrc/ssd_scan.cu and of the whole scan)
+# ---------------------------------------------------------------------------
+
+
+def ssd_chunks_ref(
+    x: torch.Tensor,  # (bh, nc, T, p) f32
+    dt: torch.Tensor,  # (bh, nc, T) f32
+    a: torch.Tensor,  # (bh, nc, T) f32 log decays dt*A
+    B: torch.Tensor,  # (b, nc*T, g, n) f32, per group
+    C: torch.Tensor,  # (b, nc*T, g, n) f32
+    *,
+    heads: int,
+):
+    """The SSD intra-chunk block of every (b·h, chunk), as the reference's
+    ``_ssd_chunk_kernel`` computes it, with B and C read per group (head
+    ``i`` of ``heads`` reads group ``i // (heads // g)``).
+
+    Returns (y_intra (bh, nc, T, p), states (bh, nc, n, p),
+    c_decay (bh, nc, T, n), chunk_decay (bh, nc, 1, 1)), all f32.
+    """
+    bh, nc, T, p = x.shape
+    b, _, g, n = B.shape
+    rep = heads // g
+    group = torch.arange(heads, device=x.device) // rep  # (h,)
+    # (b, nc, T, g, n) -> head i's group i // rep -> (b, h, nc, T, n) -> (bh, nc, T, n)
+    Bh = B.reshape(b, nc, T, g, n)[:, :, :, group].permute(0, 3, 1, 2, 4)
+    Ch = C.reshape(b, nc, T, g, n)[:, :, :, group].permute(0, 3, 1, 2, 4)
+    Bh = Bh.reshape(bh, nc, T, n)
+    Ch = Ch.reshape(bh, nc, T, n)
+    a_cum = torch.cumsum(a, dim=-1)  # (bh, nc, T)
+    seg = a_cum[..., :, None] - a_cum[..., None, :]  # (bh, nc, T, T)
+    ii = torch.arange(T, device=x.device)
+    L = torch.where(ii[:, None] >= ii[None, :], torch.exp(seg), 0.0)
+    CB = Ch @ Bh.transpose(-1, -2)  # (bh, nc, T, T)
+    M = CB * L * dt[..., None, :]
+    y = M @ x
+    decay_end = torch.exp(a_cum[..., -1:] - a_cum)  # (bh, nc, T)
+    Bw = Bh * (decay_end * dt)[..., None]
+    states = Bw.transpose(-1, -2) @ x  # (bh, nc, n, p)
+    c_decay = Ch * torch.exp(a_cum)[..., None]
+    chunk_decay = torch.exp(a_cum[..., -1])[..., None, None]
+    return y, states, c_decay, chunk_decay
+
+
+def _segsum(a: torch.Tensor) -> torch.Tensor:
+    """out[..., i, j] = sum_{k=j+1..i} a[..., k] for j <= i, -inf above."""
+    T = a.shape[-1]
+    cs = torch.cumsum(a, dim=-1)
+    diff = cs[..., :, None] - cs[..., None, :]
+    idx = torch.arange(T, device=a.device)
+    return torch.where(idx[:, None] >= idx[None, :], diff, float("-inf"))
+
+
+def ssd_scan_ref(
+    x: torch.Tensor,  # (b, s, h, p)
+    dt: torch.Tensor,  # (b, s, h) positive step sizes
+    A: torch.Tensor,  # (h,) negative decay rates
+    B: torch.Tensor,  # (b, s, g, n)
+    C: torch.Tensor,  # (b, s, g, n)
+    *,
+    chunk: int = 128,
+    return_state: bool = False,
+):
+    """Chunked Mamba2 SSD (arXiv:2405.21060), the reference's ``ssd_scan_ref``.
+
+    Recurrence h_t = exp(A dt_t) h_{t-1} + dt_t B_t x_t^T, y_t = C_t h_t.
+    Returns y (b, s, h, p) in x's dtype [and the final state (b, h, n, p)
+    f32].
+    """
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    if h % g:
+        raise ValueError(f"{h} heads are not a multiple of {g} groups")
+    rep = h // g
+    pad = (-s) % chunk
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = torch.nn.functional.pad(dt, (0, 0, 0, pad))
+        B = torch.nn.functional.pad(B, (0, 0, 0, 0, 0, pad))
+        C = torch.nn.functional.pad(C, (0, 0, 0, 0, 0, pad))
+    S = x.shape[1]
+    nc = S // chunk
+    xc = x.reshape(b, nc, chunk, h, p).float()
+    dtc = dt.reshape(b, nc, chunk, h).float()
+    Bh = torch.repeat_interleave(B.reshape(b, nc, chunk, g, n).float(), rep, dim=3)
+    Ch = torch.repeat_interleave(C.reshape(b, nc, chunk, g, n).float(), rep, dim=3)
+    a = dtc * A.float()[None, None, None, :]  # (b, nc, T, h)
+    a_cum = torch.cumsum(a, dim=2)
+
+    L = torch.exp(_segsum(a.movedim(2, -1)))  # (b, nc, h, T, T)
+    CB = torch.einsum("bcthn,bcshn->bchts", Ch, Bh)
+    M = CB * L
+    y_intra = torch.einsum("bchts,bcsh,bcshp->bcthp", M, dtc, xc)
+
+    decay_end = torch.exp(a_cum[:, :, -1:, :] - a_cum)  # (b, nc, T, h)
+    states = torch.einsum("bcthn,bcth,bcth,bcthp->bchnp", Bh, decay_end, dtc, xc)
+    chunk_decay = torch.exp(a_cum[:, :, -1, :])  # (b, nc, h)
+
+    hprev = torch.zeros((b, h, n, p), dtype=torch.float32, device=x.device)
+    h_prevs = []
+    for c in range(nc):
+        h_prevs.append(hprev)
+        hprev = hprev * chunk_decay[:, c, :, None, None] + states[:, c]
+    h_prevs = torch.stack(h_prevs, dim=1)  # (b, nc, h, n, p)
+
+    decay_in = torch.exp(a_cum)  # (b, nc, T, h)
+    y_state = torch.einsum("bcthn,bcth,bchnp->bcthp", Ch, decay_in, h_prevs)
+    y = (y_intra + y_state).reshape(b, S, h, p)[:, :s].to(x.dtype)
+    if return_state:
+        return y, hprev
+    return y
+
+
+def ssm_decode_step(
+    hstate: torch.Tensor,  # (b, h, n, p) f32
+    x_t: torch.Tensor,  # (b, h, p)
+    dt_t: torch.Tensor,  # (b, h)
+    A: torch.Tensor,  # (h,)
+    B_t: torch.Tensor,  # (b, g, n)
+    C_t: torch.Tensor,  # (b, g, n)
+):
+    """One recurrent SSD step (the serve step of the SSM archs). Returns
+    (new state (b, h, n, p) f32, y (b, h, p) in x_t's dtype)."""
+    rep = hstate.shape[1] // B_t.shape[1]
+    Bh = torch.repeat_interleave(B_t, rep, dim=1).float()  # (b, h, n)
+    Ch = torch.repeat_interleave(C_t, rep, dim=1).float()
+    dec = torch.exp(dt_t.float() * A.float()[None, :])  # (b, h)
+    upd = dt_t[..., None, None].float() * Bh[..., :, None] * x_t[..., None, :].float()
+    h_new = hstate * dec[..., None, None] + upd
+    y = torch.einsum("bhn,bhnp->bhp", Ch, h_new)
+    return h_new, y.to(x_t.dtype)

@@ -1,0 +1,158 @@
+"""GQA multi-head attention block with KV-cache decode paths, the
+reference's ``models/attention.py``.
+
+Self-attention supports grouped-query heads (MQA included), RoPE, optional
+QKV biases, causal / bidirectional / sliding-window masks, prefill that
+returns a KV cache, and one-token decode into the cache; cross-attention
+reuses the projections with an externally supplied KV pair. The inner
+product goes through ``kernels.ops.flash_attention``: the Hopper kernel on
+the card for prefill and decode alike, the plain chunked version on the
+host.
+
+A cache is ``{"k": (b, hk, L, d), "v": ..., "idx": int}``. ``idx`` is a
+Python int (the host knows every step's position, so the kernel gets it as
+a launch argument). ``decode_step`` writes the new key and value into the
+cache tensors in place, where the reference returns updated copies: a
+serving step then moves one row per layer, not the whole cache.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch.kernels import ops
+from repro_torch.models import common
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnConfig:
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_head: int
+    rope_theta: float = 1e4
+    qkv_bias: bool = False
+    causal: bool = True
+    window: Optional[int] = None  # sliding-window size (None = global)
+    use_rope: bool = True
+
+
+class Attention(nn.Module):
+    """q, k, v, o projections; the functions below apply them."""
+
+    def __init__(self, cfg: AttnConfig, dtype, *, generator: torch.Generator, device):
+        super().__init__()
+        kw = dict(dtype=dtype, generator=generator, device=device)
+        hd = cfg.d_head
+        self.q = common.Linear(cfg.d_model, cfg.n_heads * hd, bias=cfg.qkv_bias, **kw)
+        self.k = common.Linear(cfg.d_model, cfg.n_kv_heads * hd, bias=cfg.qkv_bias, **kw)
+        self.v = common.Linear(cfg.d_model, cfg.n_kv_heads * hd, bias=cfg.qkv_bias, **kw)
+        self.o = common.Linear(cfg.n_heads * hd, cfg.d_model, bias=False, **kw)
+
+
+def init(cfg: AttnConfig, dtype, *, generator: torch.Generator, device) -> Attention:
+    return Attention(cfg, dtype, generator=generator, device=device)
+
+
+def _split_heads(x: torch.Tensor, n: int, d: int) -> torch.Tensor:
+    b, s, _ = x.shape
+    return x.reshape(b, s, n, d).transpose(1, 2)  # (b, h, s, d)
+
+
+def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+    b, h, s, d = x.shape
+    return x.transpose(1, 2).reshape(b, s, h * d)
+
+
+def cache_len(cfg: AttnConfig, max_len: int) -> int:
+    """Sliding-window layers keep a ring cache of ``window`` slots."""
+    if cfg.window is not None:
+        return min(max_len, cfg.window)
+    return max_len
+
+
+def make_cache(cfg: AttnConfig, batch: int, max_len: int, dtype, device) -> dict:
+    """Preallocated KV cache (ring-sized for windowed layers)."""
+    shape = (batch, cfg.n_kv_heads, cache_len(cfg, max_len), cfg.d_head)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "idx": 0,
+    }
+
+
+def forward(p: Attention, cfg: AttnConfig, x: torch.Tensor, *,
+            positions: Optional[torch.Tensor] = None, return_cache: bool = False,
+            max_cache_len: Optional[int] = None,
+            kv_input: Optional[torch.Tensor] = None, impl: Optional[str] = None):
+    """Full-sequence attention (prefill / encoder / cross); x (b, s, d_model)."""
+    b, s, _ = x.shape
+    kv_src = x if kv_input is None else kv_input
+    s_kv = kv_src.shape[1]
+    q = _split_heads(p.q(x), cfg.n_heads, cfg.d_head)
+    k = _split_heads(p.k(kv_src), cfg.n_kv_heads, cfg.d_head)
+    v = _split_heads(p.v(kv_src), cfg.n_kv_heads, cfg.d_head)
+    if cfg.use_rope and kv_input is None:
+        pos = torch.arange(s, device=x.device) if positions is None else positions
+        q = common.apply_rope(q, pos, cfg.rope_theta)
+        k = common.apply_rope(k, pos, cfg.rope_theta)
+    out = ops.flash_attention(q, k, v, causal=cfg.causal and kv_input is None,
+                              window=cfg.window, impl=impl)
+    out = p.o(_merge_heads(out))
+    if not return_cache:
+        return out
+    cache = make_cache(cfg, b, max_cache_len or s_kv, k.dtype, x.device)
+    L = cache["k"].shape[2]
+    if s_kv <= L:
+        cache["k"][:, :, :s_kv] = k
+        cache["v"][:, :, :s_kv] = v
+    else:
+        # ring layout: position t lives at slot t % L; the prompt's last L
+        # keys land rotated so that decode's (idx % L) writes line up
+        shift = s_kv % L
+        cache["k"] = torch.roll(k[:, :, -L:], shift, dims=2).contiguous()
+        cache["v"] = torch.roll(v[:, :, -L:], shift, dims=2).contiguous()
+    cache["idx"] = s_kv
+    return out, cache
+
+
+def decode_step(p: Attention, cfg: AttnConfig, x: torch.Tensor, cache: dict, *,
+                impl: Optional[str] = None):
+    """One-token causal decode; x (b, 1, d_model). Writes the token's key
+    and value into ``cache`` in place and returns (out, cache with idx + 1).
+
+    Windowed layers write ring slot idx % L and attend over min(idx + 1, L)
+    slots; RoPE is applied at the key's true position before it is stored,
+    and attention is permutation-invariant over keys."""
+    idx = int(cache["idx"])
+    L = cache["k"].shape[2]
+    q = _split_heads(p.q(x), cfg.n_heads, cfg.d_head)
+    k = _split_heads(p.k(x), cfg.n_kv_heads, cfg.d_head)
+    v = _split_heads(p.v(x), cfg.n_kv_heads, cfg.d_head)
+    if cfg.use_rope:
+        pos = torch.full((1,), idx, dtype=torch.int32, device=x.device)
+        q = common.apply_rope(q, pos, cfg.rope_theta)
+        k = common.apply_rope(k, pos, cfg.rope_theta)
+    if cfg.window is not None:
+        slot, q_offset, kv_len = idx % L, 0, min(idx + 1, L)
+    else:  # past-only masking comes from kv_len
+        slot, q_offset, kv_len = idx, idx, idx + 1
+    cache["k"][:, :, slot] = k[:, :, 0]
+    cache["v"][:, :, slot] = v[:, :, 0]
+    out = ops.flash_attention(q, cache["k"], cache["v"], causal=False, window=None,
+                              q_offset=q_offset, kv_len=kv_len, impl=impl)
+    out = p.o(_merge_heads(out))
+    return out, {"k": cache["k"], "v": cache["v"], "idx": idx + 1}
+
+
+def cross_decode_step(p: Attention, cfg: AttnConfig, x: torch.Tensor, cache: dict, *,
+                      impl: Optional[str] = None) -> torch.Tensor:
+    """Cross-attention during decode: static KV from the encoder cache."""
+    q = _split_heads(p.q(x), cfg.n_heads, cfg.d_head)
+    out = ops.flash_attention(q, cache["k"], cache["v"], causal=False,
+                              kv_len=int(cache["idx"]), impl=impl)
+    return p.o(_merge_heads(out))

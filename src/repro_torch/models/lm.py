@@ -1,0 +1,234 @@
+"""Decoder-only LM over a repeating pattern of block kinds, the reference's
+``models/lm.py``, for the kinds the port carries:
+
+    "attn"   -- global attention + dense FFN   (starcoder2, the examples)
+    "local"  -- sliding-window attention + FFN (ring KV cache)
+    "mamba"  -- Mamba2 SSD block               (mamba2)
+
+Kinds "moe", ``shared_attn`` and ``vision`` raise ``NotImplementedError``
+(ROADMAP A8: ``models/moe.py`` and the zamba2 / phi-3-vision paths).
+
+Where the reference stacks each pattern position's weights over
+``n_groups`` and runs ``lax.scan``, the port keeps one module per layer in
+an ``nn.ModuleList``: layer ``g * len(pattern) + i`` is group g's block of
+pattern position i. Caches are a list with one dict per layer. Entry
+points:
+
+    forward(cfg, model, tokens)                    -> (logits, aux)
+    prefill(cfg, model, tokens, max_cache_len=L)   -> (caches, last logits)
+    decode_step(cfg, model, caches, token)         -> (caches, logits)
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.models import attention, common, mamba2
+from repro_torch.models.attention import AttnConfig
+from repro_torch.models.mamba2 import Mamba2Config
+
+PORTED_KINDS = ("attn", "local", "mamba")
+NOT_PORTED = "not ported yet (ROADMAP A8: models/moe.py, the shared-attention and vision paths)"
+
+
+@dataclasses.dataclass(frozen=True)
+class VisionStub:
+    n_patches: int
+    d_vision: int
+
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    name: str
+    vocab: int
+    d_model: int
+    n_layers: int
+    pattern: Tuple[str, ...]  # super-block; n_layers % len(pattern) == 0
+    attn: Optional[AttnConfig] = None
+    local_window: Optional[int] = None
+    d_ff: int = 0
+    mlp_gated: bool = True
+    moe_cfg: Optional[Any] = None
+    mamba_cfg: Optional[Mamba2Config] = None
+    shared_attn: bool = False
+    norm: str = "rmsnorm"
+    act: str = "silu"
+    tie_embeddings: bool = True
+    scale_embeddings: bool = False
+    dtype: Any = torch.bfloat16
+    vision: Optional[VisionStub] = None
+    remat: bool = True
+    scan_nest: int = 1
+    moe_aux_weight: float = 0.01
+    moe_z_weight: float = 1e-3
+
+    @property
+    def n_groups(self) -> int:
+        if self.n_layers % len(self.pattern):
+            raise ValueError(f"{self.n_layers} layers over pattern {self.pattern}")
+        return self.n_layers // len(self.pattern)
+
+    def local_attn(self) -> AttnConfig:
+        return dataclasses.replace(self.attn, window=self.local_window)
+
+    def kinds(self) -> List[str]:
+        """The block kind of every layer, in order."""
+        return [k for _ in range(self.n_groups) for k in self.pattern]
+
+
+def _check_ported(cfg: LMConfig) -> None:
+    bad = [k for k in cfg.pattern if k not in PORTED_KINDS]
+    if bad:
+        raise NotImplementedError(f"block kind {bad[0]!r}: {NOT_PORTED}")
+    if cfg.shared_attn:
+        raise NotImplementedError(f"shared_attn: {NOT_PORTED}")
+    if cfg.vision is not None:
+        raise NotImplementedError(f"vision: {NOT_PORTED}")
+
+
+def _attn_cfg(cfg: LMConfig, kind: str) -> AttnConfig:
+    return cfg.local_attn() if kind == "local" else cfg.attn
+
+
+class AttnBlock(nn.Module):
+    """ln1 -> attention -> residual, ln2 -> MLP -> residual."""
+
+    def __init__(self, cfg: LMConfig, kind: str, *, generator: torch.Generator, device):
+        super().__init__()
+        d, dt = cfg.d_model, cfg.dtype
+        self.ln1 = common.Norm(d, kind=cfg.norm, dtype=dt, device=device)
+        self.attn = attention.init(_attn_cfg(cfg, kind), dt, generator=generator,
+                                   device=device)
+        self.ln2 = common.Norm(d, kind=cfg.norm, dtype=dt, device=device)
+        self.mlp = common.MLP(d, cfg.d_ff, gated=cfg.mlp_gated, bias=False, act=cfg.act,
+                              dtype=dt, generator=generator, device=device)
+
+
+class MambaBlock(nn.Module):
+    """ln -> Mamba2 -> residual."""
+
+    def __init__(self, cfg: LMConfig, *, generator: torch.Generator, device):
+        super().__init__()
+        self.ln = common.Norm(cfg.d_model, kind=cfg.norm, dtype=cfg.dtype, device=device)
+        self.mamba = mamba2.init(cfg.mamba_cfg, cfg.dtype, generator=generator,
+                                 device=device)
+
+
+class LM(nn.Module):
+    def __init__(self, cfg: LMConfig, *, generator: torch.Generator, device):
+        super().__init__()
+        _check_ported(cfg)
+        self.embed = common.Embed(cfg.vocab, cfg.d_model, dtype=cfg.dtype,
+                                  generator=generator, device=device)
+        self.blocks = nn.ModuleList(
+            MambaBlock(cfg, generator=generator, device=device) if kind == "mamba"
+            else AttnBlock(cfg, kind, generator=generator, device=device)
+            for kind in cfg.kinds())
+        self.final_norm = common.Norm(cfg.d_model, kind=cfg.norm, dtype=cfg.dtype,
+                                      device=device)
+        self.lm_head = (None if cfg.tie_embeddings else common.Linear(
+            cfg.d_model, cfg.vocab, bias=False, dtype=cfg.dtype, generator=generator,
+            device=device))
+
+
+def init(cfg: LMConfig, *, generator: torch.Generator, device) -> LM:
+    """Random weights from ``generator`` (on ``device``), the reference's
+    init scheme; the numbers differ from ``jax.random``'s."""
+    return LM(cfg, generator=generator, device=device)
+
+
+def _block_forward(blk, cfg: LMConfig, kind: str, h, positions, *, impl):
+    if kind == "mamba":
+        return h + mamba2.forward(blk.mamba, cfg.mamba_cfg, blk.ln(h), impl=impl)
+    h = h + attention.forward(blk.attn, _attn_cfg(cfg, kind), blk.ln1(h),
+                              positions=positions, impl=impl)
+    return h + blk.mlp(blk.ln2(h))
+
+
+def _block_prefill(blk, cfg: LMConfig, kind: str, h, positions, max_len, *, impl):
+    if kind == "mamba":
+        y, state = mamba2.forward(blk.mamba, cfg.mamba_cfg, blk.ln(h), return_state=True,
+                                  impl=impl)
+        return h + y, state
+    a, cache = attention.forward(blk.attn, _attn_cfg(cfg, kind), blk.ln1(h),
+                                 positions=positions, return_cache=True,
+                                 max_cache_len=max_len, impl=impl)
+    h = h + a
+    return h + blk.mlp(blk.ln2(h)), cache
+
+
+def _block_decode(blk, cfg: LMConfig, kind: str, h, cache, *, impl):
+    if kind == "mamba":
+        y, cache = mamba2.decode_step(blk.mamba, cfg.mamba_cfg, blk.ln(h), cache)
+        return h + y, cache
+    a, cache = attention.decode_step(blk.attn, _attn_cfg(cfg, kind), blk.ln1(h), cache,
+                                     impl=impl)
+    h = h + a
+    return h + blk.mlp(blk.ln2(h)), cache
+
+
+def _embed_inputs(cfg: LMConfig, model: LM, tokens: torch.Tensor) -> torch.Tensor:
+    h = model.embed(tokens)
+    if cfg.scale_embeddings:
+        h = h * torch.tensor(cfg.d_model**0.5, dtype=h.dtype, device=h.device)
+    return h
+
+
+def _logits(cfg: LMConfig, model: LM, h: torch.Tensor) -> torch.Tensor:
+    h = model.final_norm(h)
+    if cfg.tie_embeddings:
+        return common.unembed(model.embed, h)
+    return common.linear_f32out(model.lm_head, h)
+
+
+def forward(cfg: LMConfig, model: LM, tokens: torch.Tensor, images=None, *,
+            impl: Optional[str] = None):
+    """tokens (b, s) -> (logits (b, s, vocab) f32, aux losses {lb, z})."""
+    if images is not None:
+        raise NotImplementedError(f"images: {NOT_PORTED}")
+    h = _embed_inputs(cfg, model, tokens)
+    positions = torch.arange(h.shape[1], device=h.device)
+    for blk, kind in zip(model.blocks, cfg.kinds()):
+        h = _block_forward(blk, cfg, kind, h, positions, impl=impl)
+    zero = torch.zeros((), dtype=torch.float32, device=h.device)
+    return _logits(cfg, model, h), {"lb": zero, "z": zero}
+
+
+def prefill(cfg: LMConfig, model: LM, tokens: torch.Tensor, *, max_cache_len: int,
+            images=None, impl: Optional[str] = None):
+    """Build decode caches from a full prompt: (caches, logits of the last
+    position (b, 1, vocab) f32)."""
+    if images is not None:
+        raise NotImplementedError(f"images: {NOT_PORTED}")
+    h = _embed_inputs(cfg, model, tokens)
+    positions = torch.arange(h.shape[1], device=h.device)
+    caches = []
+    for blk, kind in zip(model.blocks, cfg.kinds()):
+        h, cache = _block_prefill(blk, cfg, kind, h, positions, max_cache_len, impl=impl)
+        caches.append(cache)
+    return caches, _logits(cfg, model, h[:, -1:, :])
+
+
+def init_caches(cfg: LMConfig, batch: int, max_len: int, device) -> list:
+    """Zero caches for decode from scratch."""
+    _check_ported(cfg)
+    return [mamba2.make_state(cfg.mamba_cfg, batch, cfg.dtype, device) if kind == "mamba"
+            else attention.make_cache(_attn_cfg(cfg, kind), batch, max_len, cfg.dtype,
+                                      device)
+            for kind in cfg.kinds()]
+
+
+def decode_step(cfg: LMConfig, model: LM, caches: list, token: torch.Tensor, *,
+                impl: Optional[str] = None):
+    """token (b, 1) -> (new caches, logits (b, 1, vocab) f32). Attention
+    caches are updated in place (``attention.decode_step``)."""
+    h = _embed_inputs(cfg, model, token)
+    new_caches = []
+    for blk, kind, cache in zip(model.blocks, cfg.kinds(), caches):
+        h, cache = _block_decode(blk, cfg, kind, h, cache, impl=impl)
+        new_caches.append(cache)
+    return new_caches, _logits(cfg, model, h)

@@ -1,0 +1,157 @@
+"""Mamba2 block (state-space duality) with a decode step, the reference's
+``models/mamba2.py`` (arXiv:2405.21060): one input projection gives
+[z | x | B | C | dt], a causal depthwise conv over (x, B, C), softplus dt
+with a learned bias, negative head decays A, SSD sequence mixing
+(``kernels.ops.ssd_scan``: the Hopper chunk kernel on the card), the D
+skip, a gated RMSNorm and the output projection.
+
+Decode keeps (conv, ssm) state per layer and runs the recurrent
+``ops.ssm_decode_step`` (plain torch, as in the reference).
+``dt_bias``, ``A_log`` and ``D`` are float32 in every model dtype.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch.kernels import ops
+from repro_torch.models import common
+
+
+@dataclasses.dataclass(frozen=True)
+class Mamba2Config:
+    d_model: int
+    d_inner: int  # usually 2 * d_model
+    d_state: int  # N
+    head_dim: int  # P
+    n_groups: int = 1  # B/C groups (G)
+    d_conv: int = 4
+    chunk: int = 128
+
+    @property
+    def n_heads(self) -> int:
+        if self.d_inner % self.head_dim:
+            raise ValueError(f"d_inner {self.d_inner} % head_dim {self.head_dim}")
+        return self.d_inner // self.head_dim
+
+    @property
+    def conv_channels(self) -> int:
+        return self.d_inner + 2 * self.n_groups * self.d_state
+
+    @property
+    def d_in_proj(self) -> int:
+        return 2 * self.d_inner + 2 * self.n_groups * self.d_state + self.n_heads
+
+
+class Mamba2(nn.Module):
+    def __init__(self, cfg: Mamba2Config, dtype, *, generator: torch.Generator, device):
+        super().__init__()
+        h = cfg.n_heads
+        kw = dict(dtype=dtype, generator=generator, device=device)
+        self.in_proj = common.Linear(cfg.d_model, cfg.d_in_proj, bias=False, **kw)
+        self.conv_w = common.param(common.normal(
+            (cfg.d_conv, cfg.conv_channels), std=0.1, **kw))
+        self.conv_b = common.param(torch.zeros((cfg.conv_channels,), dtype=dtype,
+                                                device=device))
+        lo, hi = math.log(1e-3), math.log(1e-1)
+        u = torch.rand((h,), generator=generator, device=device) * (hi - lo) + lo
+        self.dt_bias = common.param(torch.log(torch.expm1(torch.exp(u))).float())
+        u = torch.rand((h,), generator=generator, device=device) * 15.0 + 1.0
+        self.A_log = common.param(torch.log(u).float())
+        self.D = common.param(torch.ones((h,), dtype=torch.float32, device=device))
+        self.norm_scale = common.param(torch.ones((cfg.d_inner,), dtype=dtype,
+                                                   device=device))
+        self.out_proj = common.Linear(cfg.d_inner, cfg.d_model, bias=False, **kw)
+
+
+def init(cfg: Mamba2Config, dtype, *, generator: torch.Generator, device) -> Mamba2:
+    return Mamba2(cfg, dtype, generator=generator, device=device)
+
+
+def _split_proj(cfg: Mamba2Config, zxbcdt: torch.Tensor):
+    di = cfg.d_inner
+    return (zxbcdt[..., :di], zxbcdt[..., di:di + cfg.conv_channels],
+            zxbcdt[..., di + cfg.conv_channels:])
+
+
+def _causal_conv(w: torch.Tensor, b: torch.Tensor, xbc: torch.Tensor,
+                 prev: Optional[torch.Tensor] = None):
+    """Depthwise causal conv of width d_conv over xbc (batch, s, ch); taps
+    summed in order i = 0 .. d_conv - 1, as the reference."""
+    dconv = w.shape[0]
+    pad = (torch.zeros((xbc.shape[0], dconv - 1, xbc.shape[2]), dtype=xbc.dtype,
+                       device=xbc.device) if prev is None else prev)
+    xp = torch.cat([pad, xbc], dim=1)  # (b, s + dconv - 1, ch)
+    s = xbc.shape[1]
+    out = xp[:, 0:s] * w[0][None, None, :]
+    for i in range(1, dconv):
+        out = out + xp[:, i:i + s] * w[i][None, None, :]
+    out = torch.nn.functional.silu(out + b)
+    new_state = xp[:, -(dconv - 1):] if dconv > 1 else pad[:, :0]
+    return out, new_state
+
+
+def _gated_rmsnorm(scale: torch.Tensor, y: torch.Tensor, z: torch.Tensor,
+                   eps: float = 1e-6) -> torch.Tensor:
+    yf = y.float() * torch.nn.functional.silu(z.float())
+    ms = (yf * yf).mean(dim=-1, keepdim=True)
+    return (yf * torch.rsqrt(ms + eps) * scale.float()).to(y.dtype)
+
+
+def forward(p: Mamba2, cfg: Mamba2Config, x: torch.Tensor, *, return_state: bool = False,
+            impl: Optional[str] = None):
+    """x (b, s, d_model) -> (b, s, d_model) [, state {conv, ssm}]."""
+    b, s, _ = x.shape
+    g, n, h, pd = cfg.n_groups, cfg.d_state, cfg.n_heads, cfg.head_dim
+    z, xbc, dt_raw = _split_proj(cfg, p.in_proj(x))
+    xbc, conv_state = _causal_conv(p.conv_w, p.conv_b, xbc)
+    xs = xbc[..., :cfg.d_inner]
+    Bc = xbc[..., cfg.d_inner:cfg.d_inner + g * n].reshape(b, s, g, n)
+    Cc = xbc[..., cfg.d_inner + g * n:].reshape(b, s, g, n)
+    dt = torch.nn.functional.softplus(dt_raw.float() + p.dt_bias)  # (b, s, h)
+    A = -torch.exp(p.A_log)
+    xh = xs.reshape(b, s, h, pd)
+    out = ops.ssd_scan(xh, dt, A, Bc, Cc, chunk=min(cfg.chunk, max(16, s)),
+                       return_state=return_state, impl=impl)
+    y, ssm_state = out if return_state else (out, None)
+    y = y + p.D[None, None, :, None] * xh.float()
+    y = y.reshape(b, s, cfg.d_inner).to(x.dtype)
+    y = _gated_rmsnorm(p.norm_scale, y, z)
+    y = p.out_proj(y)
+    if return_state:
+        return y, {"conv": conv_state, "ssm": ssm_state}
+    return y
+
+
+def make_state(cfg: Mamba2Config, batch: int, dtype, device) -> dict:
+    return {
+        "conv": torch.zeros((batch, cfg.d_conv - 1, cfg.conv_channels), dtype=dtype,
+                            device=device),
+        "ssm": torch.zeros((batch, cfg.n_heads, cfg.d_state, cfg.head_dim),
+                           dtype=torch.float32, device=device),
+    }
+
+
+def decode_step(p: Mamba2, cfg: Mamba2Config, x: torch.Tensor, state: dict):
+    """x (b, 1, d_model); state {conv (b, d_conv-1, ch), ssm (b, h, n, p)}."""
+    b = x.shape[0]
+    g, n, h, pd = cfg.n_groups, cfg.d_state, cfg.n_heads, cfg.head_dim
+    z, xbc, dt_raw = _split_proj(cfg, p.in_proj(x))
+    xbc, conv_state = _causal_conv(p.conv_w, p.conv_b, xbc, prev=state["conv"])
+    xs = xbc[..., :cfg.d_inner]
+    Bc = xbc[..., cfg.d_inner:cfg.d_inner + g * n].reshape(b, g, n)
+    Cc = xbc[..., cfg.d_inner + g * n:].reshape(b, g, n)
+    dt = torch.nn.functional.softplus(dt_raw[:, 0].float() + p.dt_bias)  # (b, h)
+    A = -torch.exp(p.A_log)
+    xh = xs.reshape(b, h, pd)
+    ssm_new, y = ops.ssm_decode_step(state["ssm"], xh, dt, A, Bc, Cc)
+    y = y + p.D[None, :, None] * xh.float()
+    y = y.reshape(b, 1, cfg.d_inner).to(x.dtype)
+    y = _gated_rmsnorm(p.norm_scale, y, z)
+    y = p.out_proj(y)
+    return y, {"conv": conv_state, "ssm": ssm_new}

@@ -1,0 +1,97 @@
+"""Write tests/data/torch_port_serve_golden.npz from the JAX package.
+
+For starcoder2-3b and mamba2-130m at SMOKE width (float32): the
+reference's weights (``lm.init`` with ``jax.random.PRNGKey(SEED)``), fixed
+prompts (numpy seed), the prefill logits, every greedy decode step's logits
+and the greedy tokens, from the reference's ``make_prefill`` /
+``make_serve_step`` with a cache of prompt + gen + 8 slots. The port's
+``chip_smoke.py`` loads the weights into the port on the card and holds
+its logits and tokens against these (the card's machine has no JAX). JAX
+runs on the CPU:
+
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/helpers/make_torch_port_serve_golden.py
+
+Keys, per arch ``<a>``: ``<a>/param/<path>`` (the reference's pytree,
+``blocks.<i>.`` for pattern position i, stacked over groups),
+``<a>/prompts``, ``<a>/prefill_logits`` (b, 1, vocab),
+``<a>/step_logits`` (gen - 1, b, 1, vocab), ``<a>/tokens`` (b, gen) and
+``<a>/min_top2_gap``, the smallest gap between the two largest logits of
+any greedy pick (a pick closer than the comparison's tolerance would be a
+tie, not a check).
+"""
+
+import os
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+
+from repro.configs import get_arch
+from repro.launch import steps
+from repro.models import lm
+
+SEED = 12
+ARCHS = ("starcoder2-3b", "mamba2-130m")
+BATCH, PROMPT_LEN, GEN = 2, 40, 8
+OUT = os.path.join(os.path.dirname(__file__), "..", "data", "torch_port_serve_golden.npz")
+
+
+def _flatten(tree, prefix):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _flatten(tree[k], f"{prefix}.{k}" if prefix else str(k))
+    elif isinstance(tree, (list, tuple)):
+        for i, t in enumerate(tree):
+            yield from _flatten(t, f"{prefix}.{i}")
+    else:
+        yield prefix, np.asarray(tree)
+
+
+def _top2_gap(logits: np.ndarray) -> float:
+    top = np.sort(logits[:, -1], axis=-1)
+    return float((top[:, -1] - top[:, -2]).min())
+
+
+def golden(arch_id: str) -> dict:
+    arch = get_arch(arch_id)
+    cfg = arch.smoke
+    params = lm.init(jax.random.PRNGKey(SEED), cfg)
+    rng = np.random.default_rng(SEED)
+    prompts = np.concatenate([rng.integers(0, cfg.vocab, (1, PROMPT_LEN)).astype(np.int32)
+                              for _ in range(BATCH)], 0)
+    prefill = jax.jit(steps.make_prefill(arch, cfg, max_cache_len=PROMPT_LEN + GEN + 8))
+    serve_step = jax.jit(steps.make_serve_step(arch, cfg))
+    caches, logits = prefill(params, {"tokens": jnp.asarray(prompts)})
+    tok = jnp.argmax(logits[:, -1], axis=-1).astype(jnp.int32)[:, None]
+    prefill_logits, gaps = np.asarray(logits), [_top2_gap(np.asarray(logits))]
+    tokens, step_logits = [np.asarray(tok)], []
+    for _ in range(GEN - 1):
+        caches, tok, logits = serve_step(params, caches, tok)
+        tokens.append(np.asarray(tok))
+        step_logits.append(np.asarray(logits))
+        gaps.append(_top2_gap(np.asarray(logits)))
+    out = {f"{arch_id}/param/{k}": v for k, v in _flatten(params, "")}
+    out.update({
+        f"{arch_id}/prompts": prompts,
+        f"{arch_id}/prefill_logits": prefill_logits,
+        f"{arch_id}/step_logits": np.stack(step_logits),
+        f"{arch_id}/tokens": np.concatenate(tokens, 1),
+        f"{arch_id}/min_top2_gap": np.float32(min(gaps)),
+    })
+    return out
+
+
+def main() -> int:
+    payload = {}
+    for arch_id in ARCHS:
+        payload.update(golden(arch_id))
+        print(f"{arch_id}: min top-2 logit gap {float(payload[f'{arch_id}/min_top2_gap']):.3g}")
+    np.savez_compressed(OUT, **payload)
+    print(f"wrote {len(payload)} arrays, {os.path.getsize(OUT)} bytes, to "
+          f"{os.path.normpath(OUT)}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

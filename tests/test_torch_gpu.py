@@ -105,3 +105,142 @@ def test_engine_fused_kernel_path_matches_exact(cuda):
                     engine.Constraints(max_time_s=1e-3))]
     assert eng.plan_many(ws) == eng.plan_many(ws, fused=False)
     assert eng.pareto_many(ws) == eng.pareto_many(ws, fused=False)
+
+
+# ---------------------------------------------------------------------------
+# flash attention and the SSD chunk block (the serving path's kernels)
+# ---------------------------------------------------------------------------
+
+# (b, h, hk, sq, skv, d, causal, window, q_offset, kv_len)
+FLASH_CASES = [
+    (2, 4, 4, 64, 64, 32, True, None, 0, None),  # MHA
+    (2, 4, 2, 67, 67, 32, True, None, 0, None),  # GQA, ragged
+    (1, 8, 1, 128, 128, 64, True, None, 0, None),  # MQA
+    (2, 4, 2, 80, 80, 32, True, 16, 0, None),  # sliding window
+    (2, 4, 4, 48, 48, 32, False, None, 0, None),  # bidirectional
+    (2, 6, 2, 130, 130, 128, True, None, 0, None),  # d 128, three q tiles
+    (1, 3, 1, 20, 20, 16, True, None, 0, None),  # d 16
+    (2, 4, 2, 1, 40, 16, False, None, 25, 26),  # decode step, kv_len < skv
+    (2, 24, 2, 1, 1064, 128, False, None, 1055, 1056),  # starcoder2's decode
+    (2, 4, 2, 1, 16, 32, False, None, 0, 9),  # decode on a ring cache
+    (1, 4, 2, 5, 40, 64, True, None, 30, 35),  # five rows, the row kernel
+    (1, 4, 2, 20, 40, 64, True, 8, 30, 25),  # rows 2.. fully masked (tile kernel)
+    (1, 4, 2, 4, 40, 64, True, 8, 30, 25),  # the same on the row kernel
+    (1, 2, 1, 3, 8, 32, False, None, 0, 0),  # kv_len 0: every row masked
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_attention_kernel_matches_plain(cuda, case, dtype):
+    from repro_torch.kernels import ops
+
+    b, h, hk, sq, skv, d, causal, window, q_offset, kv_len = case
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(sq * 1000 + skv + d)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda, dt)
+               for s in ((b, h, sq, d), (b, hk, skv, d), (b, hk, skv, d)))
+    kw = dict(causal=causal, window=window, q_offset=q_offset, kv_len=kv_len)
+    before = ops.LAUNCHES["flash_attention"]
+    got = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    want = ops.flash_attention(q, k, v, impl="ref", **kw)
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == dt and got.shape == want.shape
+    # f32: the same function summed in another order; bf16: one rounding
+    # of the output to bf16 (2^-7 relative at |out| ~ 1), and per element
+    # at most one bf16 ulp (2^-7 of |want|) plus 1e-4 near 0, so that small
+    # outputs (a decode row's ~0.05) are held to their own scale
+    tol = 2e-5 if dt == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+    if dt == torch.bfloat16:
+        torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -7, atol=1e-4)
+    if kv_len == 0:
+        assert not got.any()
+    if window == 8:  # q_pos - 7 >= kv_len: no key left
+        assert not got[:, :, 2:].any()
+
+
+def test_flash_attention_kernel_rejects_what_it_does_not_take(cuda):
+    from repro_torch.kernels import ops
+
+    q = torch.zeros((1, 2, 4, 48), device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.flash_attention(q, q, q)
+    q = torch.zeros((1, 2, 4, 32), device=cuda)
+    with pytest.raises(ValueError, match="must be"):
+        ops.flash_attention(q, q.bfloat16(), q)
+    with pytest.raises(ValueError, match="kv_len"):
+        ops.flash_attention(q, q, q, kv_len=5)
+
+
+def _ssd_inputs(rng, b, s, h, p, g, n, device):
+    def t(a):
+        return torch.from_numpy(a.astype(np.float32)).to(device)
+
+    return (t(rng.normal(size=(b, s, h, p))), t(rng.uniform(0.01, 0.2, size=(b, s, h))),
+            t(-rng.uniform(0.5, 2.0, size=(h,))), t(rng.normal(size=(b, s, g, n))),
+            t(rng.normal(size=(b, s, g, n))))
+
+
+# (b, h, g, nc, T, p, n)
+SSD_CASES = [(2, 4, 1, 3, 16, 8, 16), (2, 4, 2, 2, 32, 8, 16), (1, 4, 1, 1, 40, 32, 16),
+             (1, 4, 2, 2, 67, 6, 10), (2, 24, 1, 2, 128, 64, 128)]
+
+
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_ssd_chunks_kernel_matches_plain(cuda, case):
+    from repro_torch.kernels import ops
+
+    b, h, g, nc, T, p, n = case
+    rng = np.random.default_rng(T * 100 + p + n)
+    x, dt, A, B, C = _ssd_inputs(rng, b, nc * T, h, p, g, n, cuda)
+    xc = x.movedim(2, 1).reshape(b * h, nc, T, p).contiguous()
+    dtc = dt.movedim(2, 1).reshape(b * h, nc, T).contiguous()
+    a = (dtc * A.repeat(b)[:, None, None]).contiguous()
+    before = ops.LAUNCHES["ssd_chunks"]
+    got = ops.ssd_chunks(xc, dtc, a, B, C, heads=h)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ssd_chunks"] == before + 1
+    want = ops.ssd_chunks(xc, dtc, a, B, C, heads=h, impl="ref")
+    for gt, wt in zip(got, want):
+        assert gt.shape == wt.shape
+        # f32 sums of up to T*n terms in another order, and a cumsum taken
+        # as a scan: 1e-4 of the output's scale
+        scale = float(wt.abs().max())
+        torch.testing.assert_close(gt, wt, rtol=1e-4, atol=1e-4 * scale)
+
+
+@pytest.mark.parametrize("s,chunk,g", [(100, 32, 1), (64, 16, 2), (40, 40, 1)])
+def test_ssd_scan_on_the_card_matches_plain(cuda, s, chunk, g):
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(s + chunk)
+    x, dt, A, B, C = _ssd_inputs(rng, 2, s, 4, 8, g, 16, cuda)
+    before = ops.LAUNCHES["ssd_chunks"]
+    y, hs = ops.ssd_scan(x, dt, A, B, C, chunk=chunk, return_state=True)
+    assert ops.LAUNCHES["ssd_chunks"] == before + 1
+    y_ref, hs_ref = ops.ssd_scan(x, dt, A, B, C, chunk=chunk, return_state=True, impl="ref")
+    torch.testing.assert_close(y, y_ref, rtol=1e-4, atol=1e-4 * float(y_ref.abs().max()))
+    torch.testing.assert_close(hs, hs_ref, rtol=1e-4, atol=1e-4 * float(hs_ref.abs().max()))
+
+
+@pytest.mark.parametrize("arch_id", ["starcoder2-3b", "mamba2-130m"])
+def test_smoke_lm_on_the_card_runs_the_kernels(cuda, arch_id):
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    arch, cfg, model = serve.build(arch_id, smoke=True, seed=3, device=cuda)
+    prompts = serve.make_prompts(cfg, 2, 37, seed=3)
+    name = "ssd_chunks" if arch_id.startswith("mamba") else "flash_attention"
+    before = ops.LAUNCHES[name]
+    got = serve.run(arch, cfg, model, prompts, 5)
+    launches = ops.LAUNCHES[name] - before
+    want = serve.run(arch, cfg, model, prompts, 5, impl="ref", forced=got.tokens)
+    assert ops.LAUNCHES[name] - before == launches
+    per_pass = cfg.n_layers
+    assert launches == (per_pass if name == "ssd_chunks" else per_pass * 5)
+    torch.testing.assert_close(got.prefill_logits, want.prefill_logits, rtol=0, atol=1e-4)
+    for a, b in zip(got.step_logits, want.step_logits):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4)

@@ -12,9 +12,12 @@ import pytest
 import torch
 
 from repro.kernels import ops as jops
+from repro.kernels import ref as jref
 from repro_torch.kernels import _build, ops, ref
+from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.plan_grid import pareto_mask_cuda, plan_argmin_cuda
 from repro_torch.kernels.rbf_gram import rbf_gram_cuda
+from repro_torch.kernels.ssd_scan import ssd_chunks_cuda
 
 TIME_FLOOR = 1e-6
 EPS32 = float(np.finfo(np.float32).eps)
@@ -191,6 +194,11 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     t, w, k, mask = (torch.from_numpy(a) for a in _sweep(3, 8, seed=1))
     ops.plan_argmin(t, w, k, mask, time_floor=TIME_FLOOR)
     ops.pareto_mask(t, t, mask)
+    q = torch.zeros((1, 2, 3, 16))
+    ops.flash_attention(q, q, q)
+    xs, dts, A, B, C = (torch.from_numpy(a) for a in _ssd_inputs(1, 20, 2, 4, 1, 8, seed=0))
+    ops.ssd_scan(xs, dts, A, B, C, chunk=16)
+    ops.ssd_scan_chunked(xs, dts, A, B, C, chunk=16)
     assert dict(ops.LAUNCHES) == before
     assert not ops.use_kernel(x) and not ops.use_kernel(x, "ref")
 
@@ -200,7 +208,8 @@ def test_dispatch_rejects_unknown_impl():
         ops.rbf_gram(torch.zeros((2, 2)), torch.zeros((2, 2)), 0.5, impl="pallas")
 
 
-@pytest.mark.parametrize("which", ["rbf_gram", "plan_argmin", "pareto_mask"])
+@pytest.mark.parametrize(
+    "which", ["rbf_gram", "plan_argmin", "pareto_mask", "flash_attention", "ssd_chunks"])
 def test_cuda_wrappers_refuse_host_tensors(which):
     """A wrapper launches its kernel on CUDA tensors or raises; it never
     computes on the host."""
@@ -211,15 +220,23 @@ def test_cuda_wrappers_refuse_host_tensors(which):
         elif which == "plan_argmin":
             plan_argmin_cuda(torch.zeros((2, 4)), torch.zeros((1, 4)), torch.zeros(2),
                              torch.ones((2, 4), dtype=torch.bool), time_floor=TIME_FLOOR)
-        else:
+        elif which == "pareto_mask":
             pareto_mask_cuda(torch.zeros((2, 4)), torch.zeros((2, 4)),
                              torch.ones((2, 4), dtype=torch.bool))
+        elif which == "flash_attention":
+            q = torch.zeros((1, 2, 4, 16))
+            flash_attention_cuda(q, q, q, causal=True, window=None, scale=None,
+                                 q_offset=0, kv_len=None)
+        else:
+            ssd_chunks_cuda(torch.zeros((2, 1, 16, 8)), torch.zeros((2, 1, 16)),
+                            torch.zeros((2, 1, 16)), torch.zeros((1, 16, 1, 4)),
+                            torch.zeros((1, 16, 1, 4)), heads=2)
     assert dict(ops.LAUNCHES) == before
 
 
 def test_build_inputs_and_failure_mode(monkeypatch):
     names = [p.name for p in _build.sources()]
-    assert names == ["plan_grid.cu", "rbf_gram.cu"]
+    assert names == ["flash_attention.cu", "plan_grid.cu", "rbf_gram.cu", "ssd_scan.cu"]
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert _build.BUILD_DIR.parts[-2:] == ("build", "repro_torch_kernels")
@@ -233,7 +250,8 @@ def test_build_inputs_and_failure_mode(monkeypatch):
         _build.build()
 
 
-@pytest.mark.parametrize("src", ["rbf_gram.cu", "plan_grid.cu"])
+@pytest.mark.parametrize(
+    "src", ["rbf_gram.cu", "plan_grid.cu", "flash_attention.cu", "ssd_scan.cu"])
 def test_cuda_sources_carry_their_note(src):
     text = (_build.CSRC / src).read_text()
     head = text[: text.index("#include")]
@@ -248,8 +266,164 @@ def test_reset_launches_zeroes_every_count():
     try:
         ops.LAUNCHES["rbf_gram"] += 3
         ops.reset_launches()
-        assert set(ops.LAUNCHES) == {"rbf_gram", "plan_argmin", "pareto_mask"}
+        assert set(ops.LAUNCHES) == {"rbf_gram", "plan_argmin", "pareto_mask",
+                                     "flash_attention", "ssd_chunks"}
         assert all(v == 0 for v in ops.LAUNCHES.values())
     finally:
         ops.LAUNCHES.update(saved)
 
+
+
+# ---------------------------------------------------------------------------
+# flash attention: the plain version against the reference's Pallas kernel
+# ---------------------------------------------------------------------------
+
+FLASH_CASES = [
+    (2, 4, 4, 64, 32, True, None),  # MHA
+    (2, 4, 2, 67, 32, True, None),  # GQA, ragged S
+    (1, 8, 1, 128, 64, True, None),  # MQA
+    (2, 4, 2, 80, 32, True, 16),  # sliding window
+    (2, 4, 4, 48, 32, False, None),  # bidirectional
+]
+
+
+def _qkv(b, h, hk, sq, skv, d, seed, np_dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, h, sq, d)).astype(np_dtype),
+            rng.standard_normal((b, hk, skv, d)).astype(np_dtype),
+            rng.standard_normal((b, hk, skv, d)).astype(np_dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,hk,s,d,causal,window", FLASH_CASES)
+def test_flash_attention_matches_pallas_interpret(b, h, hk, s, d, causal, window, dtype):
+    q, k, v = _qkv(b, h, hk, s, s, d, seed=s * 10 + h)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    want = np.asarray(jops.flash_attention(
+        jnp.asarray(q, jd), jnp.asarray(k, jd), jnp.asarray(v, jd), causal=causal,
+        window=window, block_q=32, block_k=32, impl="pallas_interpret"), np.float32)
+    got = ref.flash_attention_ref(
+        torch.from_numpy(q).to(td), torch.from_numpy(k).to(td), torch.from_numpy(v).to(td),
+        causal=causal, window=window, block_q=32, block_k=32)
+    assert got.dtype == td and tuple(got.shape) == want.shape
+    # the tolerance of the reference's own kernel test: f32 sums in another
+    # order; bf16 rounds the output (2^-7 relative at |out| ~ 1)
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("window,L,idx", [(None, 40, 25), (8, 40, 25), (8, 8, 30)])
+def test_flash_attention_decode_form_matches_reference(window, L, idx):
+    """Decode: one query at position idx against a cache of L slots, as
+    ``models/attention.decode_step`` calls it (global: q_offset idx, kv_len
+    idx + 1; ring of the window: q_offset 0, kv_len min(idx + 1, L))."""
+    q, k, v = _qkv(2, 4, 2, 1, L, 16, seed=idx + L)
+    if window is None:
+        kw = dict(causal=False, window=None, q_offset=idx, kv_len=idx + 1)
+    else:
+        kw = dict(causal=False, window=None, q_offset=0, kv_len=min(idx + 1, L))
+    want = np.asarray(jref.flash_attention_ref(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), **kw))
+    got = ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v), **kw)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=2e-6)
+    naive = ref.mha_naive_ref(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v), **kw)
+    np.testing.assert_allclose(naive.numpy(), want, rtol=0, atol=2e-6)
+
+
+def test_flash_attention_plain_version_is_the_same_at_any_chunking():
+    """One kv chunk or many (the running max / sum carried across them):
+    the same function, in ops's default chunking and the naive oracle."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(2, 4, 2, 70, 70, 16, seed=7))
+    want = ref.mha_naive_ref(q, k, v, causal=True, window=24)
+    for bq, bk in [(16, 16), (32, 16), (70, 70), (128, 128)]:
+        got = ref.flash_attention_ref(q, k, v, causal=True, window=24, block_q=bq, block_k=bk)
+        torch.testing.assert_close(got, want, rtol=0, atol=2e-6)
+    torch.testing.assert_close(ops.flash_attention(q, k, v, causal=True, window=24), want,
+                               rtol=0, atol=2e-6)
+
+
+def test_flash_attention_fully_masked_rows_give_zero():
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 2, 1, 6, 12, 16, seed=5))
+    out = ops.flash_attention(q, k, v, causal=True, window=4, q_offset=10, kv_len=9)
+    # row i sits at 10 + i and sees keys 7 + i .. 10 + i below 9: rows 0, 1 only
+    assert out[:, :, 2:].abs().max() == 0
+    assert out[:, :, :2].abs().min() > 0
+    assert ops.flash_attention(q, k, v, kv_len=0).abs().max() == 0
+
+
+# ---------------------------------------------------------------------------
+# SSD: the plain versions against the reference's Pallas chunk kernel
+# ---------------------------------------------------------------------------
+
+
+def _ssd_inputs(b, s, h, p, g, n, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(b, s, h, p)).astype(np.float32),
+            rng.uniform(0.01, 0.2, size=(b, s, h)).astype(np.float32),
+            (-rng.uniform(0.5, 2.0, size=(h,))).astype(np.float32),
+            rng.normal(size=(b, s, g, n)).astype(np.float32),
+            rng.normal(size=(b, s, g, n)).astype(np.float32))
+
+
+SSD_CASES = [(64, 16, 1), (64, 16, 2), (100, 32, 1), (100, 32, 2), (32, 32, 1), (32, 32, 2)]
+
+
+@pytest.mark.parametrize("s,chunk,g", SSD_CASES)
+def test_ssd_scan_matches_pallas_interpret(s, chunk, g):
+    """``ops.ssd_scan`` on the host (the plain ``ssd_scan_ref``) and
+    ``ops.ssd_scan_chunked`` (the kernel's wrapper around the plain chunk
+    block) against the reference's Pallas chunk kernel, at the reference
+    kernel test's shapes (s not a multiple of the chunk included)."""
+    arrs = _ssd_inputs(2, s, 4, 8, g, 16, seed=s + chunk + g)
+    want_y, want_h = jops.ssd_scan(*(jnp.asarray(a) for a in arrs), chunk=chunk,
+                                   return_state=True, impl="pallas_interpret")
+    want_y, want_h = np.asarray(want_y), np.asarray(want_h)
+    t = [torch.from_numpy(a) for a in arrs]
+    # f32 sums over T and n in another order: the reference test's 2e-4
+    # against its naive loop, here against its kernel
+    for fn in (ops.ssd_scan, ops.ssd_scan_chunked):
+        y, hs = fn(*t, chunk=chunk, return_state=True)
+        np.testing.assert_allclose(y.numpy(), want_y, rtol=0, atol=2e-4)
+        np.testing.assert_allclose(hs.numpy(), want_h, rtol=0, atol=2e-4)
+
+
+def test_ssd_chunks_plain_matches_the_reference_kernel_body():
+    """The plain chunk block (B and C per group) against
+    ``ssd_chunks_pallas`` in interpret mode on B and C repeated to heads, as
+    the reference's wrapper feeds it."""
+    from repro.kernels.ssd_scan import ssd_chunks_pallas
+
+    b, h, g, nc, T, p, n = 2, 4, 2, 3, 16, 8, 16
+    x, dt, A, B, C = _ssd_inputs(b, nc * T, h, p, g, n, seed=11)
+    xc = np.moveaxis(x, 2, 1).reshape(b * h, nc, T, p)
+    dtc = np.moveaxis(dt, 2, 1).reshape(b * h, nc, T)
+    a = (dtc * np.tile(A, b)[:, None, None]).astype(np.float32)
+    rep = h // g
+    Bh = np.moveaxis(np.repeat(B, rep, axis=2), 2, 1).reshape(b * h, nc, T, n)
+    Ch = np.moveaxis(np.repeat(C, rep, axis=2), 2, 1).reshape(b * h, nc, T, n)
+    want = ssd_chunks_pallas(*(jnp.asarray(v) for v in (xc, dtc, a, Bh, Ch)), chunk=T,
+                             interpret=True)
+    got = ops.ssd_chunks(*(torch.from_numpy(np.ascontiguousarray(v))
+                           for v in (xc, dtc, a, B, C)), heads=h)
+    for gt, wt in zip(got, want):
+        wt = np.asarray(wt)
+        assert tuple(gt.shape) == wt.shape
+        np.testing.assert_allclose(gt.numpy(), wt, rtol=1e-5, atol=1e-5 * np.abs(wt).max())
+
+
+def test_ssm_decode_step_matches_reference():
+    b, h, p, g, n = 2, 4, 8, 2, 16
+    rng = np.random.default_rng(3)
+    hs = rng.normal(size=(b, h, n, p)).astype(np.float32)
+    x = rng.normal(size=(b, h, p)).astype(np.float32)
+    dt = rng.uniform(0.01, 0.2, size=(b, h)).astype(np.float32)
+    A = (-rng.uniform(0.5, 2.0, size=(h,))).astype(np.float32)
+    B = rng.normal(size=(b, g, n)).astype(np.float32)
+    C = rng.normal(size=(b, g, n)).astype(np.float32)
+    args = (hs, x, dt, A, B, C)
+    want_h, want_y = jops.ssm_decode_step(*(jnp.asarray(v) for v in args))
+    got_h, got_y = ops.ssm_decode_step(*(torch.from_numpy(v) for v in args))
+    np.testing.assert_allclose(got_h.numpy(), np.asarray(want_h), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(got_y.numpy(), np.asarray(want_y), rtol=0, atol=1e-5)
