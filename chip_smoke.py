@@ -8,13 +8,17 @@ Phases (every failure raises; nothing is caught):
 1. device: the card's name and power limit; TF32 off.
 2. build: nvcc builds the Hopper kernels from src/repro_torch/kernels/csrc/.
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the main paths' shapes (exact for plan_argmin / pareto_mask, within the
-   stated tolerances for the others), timed beside its bound: many calls
+   the main paths' shapes (exact for plan_argmin / pareto_mask and the
+   int8 codec, within the stated tolerances for the others), timed beside
+   its bound: many calls
    captured in one CUDA graph and replayed between CUDA events, so the
    host's dispatch is not in the time (eager back-to-back calls are printed
-   beside it). flash_attention at starcoder2-3b's prefill and decode shapes
-   (with F.scaled_dot_product_attention timed as the library yardstick; the
-   port never calls it), ssd_chunks at mamba2-130m's prefill shape.
+   beside it). flash_attention at starcoder2-3b's prefill, decode and
+   training shapes (with F.scaled_dot_product_attention timed as the
+   library yardstick; the port never calls it), ssd_chunks at mamba2-130m's
+   prefill and training shapes, the int8 codec at starcoder2-3b's embedding
+   and MLP weights, a ragged size and edge blocks (zero, NaN, inf,
+   half-way).
 4. paper loop: evaluate.compare_governors at full characterization
    (11 f x 32 cores x 5 inputs, 4 apps: a (4, 1760, 1760) Gram), all 20
    plans, governors at the --quick settings; the plans are held against
@@ -34,11 +38,26 @@ Phases (every failure raises; nothing is caught):
    then the plain arm (impl="ref") on the same weights, fed the kernel
    arm's tokens: prefill and step logits must agree within SERVE_FULL_REL
    of their scale.
-7. launches: one JSON line with every kernel's launch count on its main
+7. train golden: starcoder2-3b and mamba2-130m at SMOKE width on the
+   card, with the kernels, on the JAX package's weights and its pipeline's
+   batches: three steps of launch.steps.make_train_step and three of the
+   compressed step of launch.train (int8 error feedback over a one-rank
+   NCCL group) against tests/data/torch_port_train_golden.npz.
+8. train starcoder2-3b at full width (batch 2 x seq 4,096, random weights
+   from a seed) with the compressed step launch.train --compress builds:
+   2 warm steps, 3 counted (step time, tokens/s, peak memory, launches a
+   step against their expectation); then the kernel arm against the plain
+   arm (impl="ref") on one forward and backward without an update.
+9. train mamba2-130m at full width through launch.train.main --compress
+   (batch 2 x seq 4,096, 4 steps, checkpoints every 2 under
+   build/chip_smoke_ckpt/), then a second main that resumes from step 4
+   and runs to 6.
+10. launches: one JSON line with every kernel's launch count on its main
    path (phases 4-5 for the planning kernels, 6b's kernel arms for the
-   serving kernels, each counted from 0 just before its path), its error
-   against the plain version and its times.
-8. the last line: {"ok": true, "device": {...}}.
+   serving kernels, phases 8-9's training runs for the codec, each
+   counted from 0 just before its path), its error against the plain
+   version and its times.
+11. the last line: {"ok": true, "device": {...}}.
 
 It exits non-zero without a CUDA device, and when the package is missing.
 """
@@ -76,6 +95,38 @@ SERVE_GOLDEN_ATOL = 1e-4
 SERVE_FULL_REL = 0.05
 SERVE_ARCHS = ("starcoder2-3b", "mamba2-130m")
 SERVE_ARGV = ["--batch", "8", "--prompt-len", "1024", "--gen", "32"]
+TRAIN_GOLDEN = os.path.join(HERE, "tests", "data", "torch_port_train_golden.npz")
+# SMOKE training on the card vs the JAX package on the host, f32: phase
+# 6a's SMOKE logits agree within 3.6e-7; three steps carry that through the
+# backward and AdamW (the host's own parity is 1e-7 on losses, 1.5e-6 on
+# grad norms, 1.5e-5 on parameters: Adam turns last-bit differences of a
+# near-zero gradient into larger steps)
+TRAIN_GOLDEN_RTOL = {"loss": 1e-5, "ce": 1e-5, "grad_norm": 1e-4, "lr": 1e-6}
+TRAIN_GOLDEN_PARAM_ATOL = 1e-4
+# the compressed step: a last-bit change of a raw gradient moves an element
+# to the next int8 level now and then, and Adam steps it by up to lr (the
+# host's parity test, tests/test_torch_train.py, states the same rule)
+COMPRESSED_GOLDEN_RTOL = {"loss": 1e-4, "grad_norm": 5e-3, "lr": 1e-6}
+COMPRESSED_CLOSE_SHARE = 0.75
+# the median parameter error: a step that drops the error-feedback residual
+# reaches 1.3e-5 and 1.7e-5 on the host, a sound one 1.5e-7 and 1.4e-6
+COMPRESSED_MEDIAN_ATOL = 5e-6
+# full width, kernel arm vs plain arm on one forward and backward (bf16),
+# the loss and the global grad norm, relative: the backward is the plain
+# recompute in both arms, so only the forward kernels' one-ulp outputs
+# differ; read 1.9e-7 (loss) and 6.4e-6 (grad norm) on the card
+TRAIN_FULL_REL = 1e-3
+TRAIN_FULL_ARGV = ["--batch", "2", "--seq", "4096"]  # the reference's train_4k sequence
+TRAIN_WARM, TRAIN_COUNTED = 2, 3
+# launches a step: starcoder2-3b has 30 layers (attention forward and its
+# recomputation) and 393 parameter tensors; mamba2-130m 24 layers and 218
+# tensors; each tensor quantizes 3 times and dequantizes once
+TRAIN_LAUNCHES = {
+    "starcoder2-3b": {"flash_attention": 60, "int8_quantize": 1179, "int8_dequantize": 393},
+    "mamba2-130m": {"ssd_chunks": 48, "int8_quantize": 654, "int8_dequantize": 218},
+}
+CODEC_SIZES = (150_994_944, 37_748_736, 1_000_003)  # the embedding, an MLP weight, ragged
+CKPT_DIR = os.path.join(HERE, "build", "chip_smoke_ckpt")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate, fp32 outside the tensor
 # cores, dense bf16 on the tensor cores
@@ -292,7 +343,74 @@ def phase_kernels(torch, np, kind):
                                   bound_by=by, max_abs_err=err)
     results["flash_attention"] = _check_flash(torch, np, rng, kind)
     results["ssd_chunks"] = _check_ssd(torch, np, rng, kind)
+    results.update(_check_codec(torch, np, kind))
     return results
+
+
+def _codec_edges(np):
+    """Zero, NaN, +inf, -inf and half-way blocks (0.5, 1.5, 2.5, -2.5 at
+    scale 1 round to 0, 2, 2, -2), then a ragged tail."""
+    rng = np.random.default_rng(SEED)
+    blocks = [np.zeros(256, np.float32)]
+    for bad in (np.nan, np.inf, -np.inf):
+        b = (rng.standard_normal(256) * 3).astype(np.float32)
+        b[int(rng.integers(256))] = bad
+        blocks.append(b)
+    b = np.zeros(256, np.float32)
+    b[0] = 127.0
+    b[1:9] = [0.5, 1.5, 2.5, -2.5, -0.5, 126.5, -126.5, 3.5]
+    blocks.append(b)
+    blocks.append((rng.standard_normal(77) * 1e-3).astype(np.float32))
+    return np.concatenate(blocks)
+
+
+def _check_codec(torch, np, kind):
+    """int8_quantize / int8_dequantize at the training path's sizes: bit for
+    bit against the plain versions, timed beside their byte bounds."""
+    from repro_torch.kernels import ops
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(dev).manual_seed(SEED)
+    edges = torch.from_numpy(_codec_edges(np)).to(dev)
+    out = {}
+    for n in (*CODEC_SIZES, edges.numel()):
+        x = edges if n == edges.numel() else torch.randn(n, generator=gen, device=dev) * 0.01
+        q, s = ops.int8_quantize(x)
+        back = ops.int8_dequantize(q, s, n=n)
+        q_ref, s_ref = ops.int8_quantize(x, impl="ref")
+        back_ref = ops.int8_dequantize(q_ref, s_ref, n=n, impl="ref")
+        torch.cuda.synchronize()
+        same = (torch.equal(q, q_ref) and torch.equal(s.view(torch.int32), s_ref.view(torch.int32))
+                and torch.equal(back.view(torch.int32), back_ref.view(torch.int32)))
+        if not same:
+            raise AssertionError(f"int8 codec n={n}: the kernels differ from the plain versions")
+        if x is edges:
+            print(f"[kernel] int8 codec edge blocks (zero, NaN, +inf, -inf, half-way; n={n}): "
+                  f"bit for bit; scales {s[:5].tolist()}", flush=True)
+            continue
+        nb = s.numel()
+        reps = 20 if n > 10**7 else 100
+        for name, fn, plain, n_bytes in (
+                ("int8_quantize", lambda: ops.int8_quantize(x),
+                 lambda: ops.int8_quantize(x, impl="ref"), 4.0 * n + nb * 256 + 4.0 * nb),
+                ("int8_dequantize", lambda: ops.int8_dequantize(q, s, n=n),
+                 lambda: ops.int8_dequantize(q, s, n=n, impl="ref"),
+                 nb * 256 + 4.0 * nb + 4.0 * n)):
+            ms = _time_ms(torch, fn, reps)
+            eager = _eager_ms(torch, fn, reps)
+            plain_ms = _time_ms(torch, plain, 5)
+            # a division, a rounding, a clamp an element (quantize), one
+            # product (dequantize): far below the fp32 rate
+            bound, by = _bound_ms(n_bytes, 4.0 * n)
+            print(f"[kernel] {name} n={n}: {ms:.4f} ms (eager calls {eager:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, bound {bound * 1e3:.2f} us by {by}, "
+                  f"{n_bytes / ms / 1e6:.0f} GB/s, bit for bit) on {kind}", flush=True)
+            if n == CODEC_SIZES[0]:  # the JSON line carries the largest tensor
+                out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                                 max_abs_err=0.0, library_ms=None)
+        del q, s, back, q_ref, s_ref, back_ref
+        torch.cuda.empty_cache()
+    return out
 
 
 def _flash_case(torch, np, rng, kind, b, h, hk, sq, skv, d, dtype, **kw):
@@ -349,25 +467,37 @@ def _flash_case(torch, np, rng, kind, b, h, hk, sq, skv, d, dtype, **kw):
 
 def _check_flash(torch, np, rng, kind):
     """starcoder2-3b's attention: prefill (b 8, H 24, Hk 2, S 1024, D 128,
-    causal) and a decode step (one row at q_offset 1055 over a 1,064-slot
-    cache, kv_len 1,056), bf16."""
+    causal), a decode step (one row at q_offset 1055 over a 1,064-slot
+    cache, kv_len 1,056) and training (b 2, S 4,096, causal), bf16."""
     bf16 = torch.bfloat16
     prefill = _flash_case(torch, np, rng, kind, 8, 24, 2, 1024, 1024, 128, bf16,
                           causal=True)
     decode = _flash_case(torch, np, rng, kind, 8, 24, 2, 1, 1064, 128, bf16, causal=False,
                          q_offset=1055, kv_len=1056)
-    # the JSON line carries the prefill shape, the larger share of the time,
-    # and the decode shape's error under its own key
-    return dict(prefill, decode_max_abs_err=decode["max_abs_err"])
+    train = _flash_case(torch, np, rng, kind, 2, 24, 2, 4096, 4096, 128, bf16, causal=True)
+    # the JSON line carries the prefill shape, the larger share of the
+    # serving time, and the other shapes' errors under their own keys
+    return dict(prefill, decode_max_abs_err=decode["max_abs_err"],
+                train_max_abs_err=train["max_abs_err"])
 
 
 def _check_ssd(torch, np, rng, kind):
-    """mamba2-130m's SSD chunk block at its prefill shape: b*h 192 (batch 8,
-    24 heads), 8 chunks of T 128, head dim 64, state 128, one group."""
+    """mamba2-130m's SSD chunk block (24 heads, chunks of T 128, head dim
+    64, state 128, one group) at its prefill shape, batch 8 x 8 chunks
+    (b*h 192), and its training shape, batch 2 x 32 chunks (b*h 48)."""
+    prefill = _ssd_case(torch, np, rng, kind, 8, 8)
+    train = _ssd_case(torch, np, rng, kind, 2, 32)
+    # the JSON line carries the prefill shape (the serving path's), and the
+    # training shape's error under its own key
+    return dict(prefill, train_max_abs_err=train["max_abs_err"])
+
+
+def _ssd_case(torch, np, rng, kind, b, nc):
+    """One ssd_chunks shape: kernel vs plain, timed beside its bound."""
     from repro_torch.kernels import ops
 
     dev = torch.device(DEVICE)
-    b, h, g, nc, T, p, n = 8, 24, 1, 8, 128, 64, 128
+    h, g, T, p, n = 24, 1, 128, 64, 128
 
     def t(a):
         return torch.from_numpy(a.astype(np.float32)).to(dev)
@@ -592,21 +722,24 @@ def _fleet_rounds(np, eng, ws, gc_clock):
           f"the kernel, plain and exact arms", flush=True)
 
 
+def _golden_params(golden, prefix: str) -> dict:
+    """A reference pytree from a golden's ``<prefix><dotted path>`` arrays."""
+    tree: dict = {}
+    for key in golden.files:
+        if key.startswith(prefix):
+            *path, leaf = key[len(prefix):].split(".")
+            node = tree
+            for part in path:
+                node = node.setdefault(part, {})
+            node[leaf] = golden[key]
+    tree["blocks"] = [tree["blocks"][str(i)] for i in range(len(tree["blocks"]))]
+    return tree
+
+
 def _reference_params(golden, arch_id: str) -> dict:
     """The JAX package's parameter pytree of one arch, from the golden's
     flattened ``<arch>/param/<dotted path>`` arrays."""
-    prefix = f"{arch_id}/param/"
-    tree: dict = {}
-    for key in golden.files:
-        if not key.startswith(prefix):
-            continue
-        *path, leaf = key[len(prefix):].split(".")
-        node = tree
-        for part in path:
-            node = node.setdefault(part, {})
-        node[leaf] = golden[key]
-    tree["blocks"] = [tree["blocks"][str(i)] for i in range(len(tree["blocks"]))]
-    return tree
+    return _golden_params(golden, f"{arch_id}/param/")
 
 
 def _kernel_of(arch_id: str) -> str:
@@ -718,6 +851,279 @@ def phase_serve_full(torch, np):
     return launches
 
 
+def _train_opt(golden):
+    from repro_torch.optim import adamw
+
+    return adamw.AdamWConfig(peak_lr=float(golden["meta/peak_lr"]),
+                             warmup_steps=int(golden["meta/warmup"]),
+                             total_steps=int(golden["meta/total_steps"]))
+
+
+def phase_train_golden(torch, np):
+    """SMOKE training on the card, with the kernels, from the JAX package's
+    weights and batches: make_train_step and the compressed step (one-rank
+    NCCL group) against the JAX package's losses, grad norms, lr and final
+    parameters."""
+    from repro_torch import convert
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import PipelineConfig, SyntheticPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh, steps, train
+    from repro_torch.optim import adamw, compress
+
+    golden = np.load(TRAIN_GOLDEN)
+    serve_golden = np.load(SERVE_GOLDEN)
+    dev = torch.device(DEVICE)
+    opt_cfg = _train_opt(golden)
+    group = mesh.make_data_group(dev)
+    if torch.distributed.get_backend(group) != "nccl":
+        raise AssertionError("the data group on the card is not NCCL")
+    for arch_id in SERVE_ARCHS:
+        arch = get_arch(arch_id)
+        cfg = arch.smoke
+        pipe = SyntheticPipeline(PipelineConfig(
+            vocab=cfg.vocab, seq=int(golden["meta/seq"]), global_batch=int(golden["meta/batch"]),
+            seed=int(golden["meta/data_seed"])))
+        batches = [steps.batch_to_torch(pipe.batch_at(i), dev)
+                   for i in range(int(golden["meta/steps"]))]
+        for kind in ("train", "compressed"):
+            model = convert.lm_params_from_reference(_reference_params(serve_golden, arch_id),
+                                                     cfg, dev)
+            params = steps.trainable(model)
+            opt = adamw.init(params)
+            if kind == "train":
+                step = steps.make_train_step(arch, cfg, opt_cfg)
+            else:
+                cstep = train.make_compressed_dp_step(arch, cfg, opt_cfg, group)
+                resid = compress.init_residuals(params)
+
+                def step(m, o, b, cstep=cstep, resid=resid):
+                    m, o, _, met = cstep(m, o, resid, b)
+                    return m, o, met
+
+            before = dict(ops.LAUNCHES)
+            hist: dict = {}
+            for b in batches:
+                model, opt, met = step(model, opt, b)
+                for k, v in met.items():
+                    hist.setdefault(k, []).append(float(v))
+            launched = {k: v - before[k] for k, v in ops.LAUNCHES.items() if v != before[k]}
+            rtols = TRAIN_GOLDEN_RTOL if kind == "train" else COMPRESSED_GOLDEN_RTOL
+            rel = {k: float(np.max(np.abs(np.asarray(hist[k]) - golden[f"{arch_id}/{kind}/{k}"])
+                                   / np.abs(golden[f"{arch_id}/{kind}/{k}"]))) for k in rtols}
+            want = convert.lm_params_from_reference(
+                _golden_params(golden, f"{arch_id}/{kind}/param/"), cfg, dev).state_dict()
+            diffs = [(p - want[name]).abs() for name, p in model.state_dict().items()]
+            worst = max(float(d.max()) for d in diffs)
+            close = sum(int((d <= 1e-5).sum()) for d in diffs) / sum(d.numel() for d in diffs)
+            median = float(torch.cat([d.reshape(-1) for d in diffs]).median())
+            print(f"[train golden] {arch_id} SMOKE {kind} on the card, 3 steps: losses "
+                  f"{hist['loss']}; relative error vs the JAX golden "
+                  f"{ {k: float(f'{v:.3g}') for k, v in rel.items()} } (tolerances {rtols}); "
+                  f"parameters max |err| {worst:.3g}, {close * 100:.1f}% within 1e-5, "
+                  f"median {median:.3g}; "
+                  f"launches {launched}", flush=True)
+            bad = [k for k in rtols if rel[k] > rtols[k]]
+            if bad:
+                raise AssertionError(f"{arch_id} {kind}: {bad} differ from the JAX golden")
+            if kind == "train" and worst > TRAIN_GOLDEN_PARAM_ATOL:
+                raise AssertionError(f"{arch_id} train: parameters differ by {worst}")
+            if kind == "compressed" and (worst > 2 * sum(hist["lr"])
+                                         or close < COMPRESSED_CLOSE_SHARE
+                                         or median > COMPRESSED_MEDIAN_ATOL):
+                raise AssertionError(f"{arch_id} compressed: parameters differ ({worst}, "
+                                     f"{close:.3f} within 1e-5, median {median:.3g})")
+            if not launched.get(_kernel_of(arch_id)):
+                raise AssertionError(f"{arch_id} {kind}: the model's kernel never launched")
+            if kind == "compressed" and not launched.get("int8_quantize"):
+                raise AssertionError(f"{arch_id}: the codec never launched")
+
+
+def _argv_int(argv, flag: str) -> int:
+    return int(argv[argv.index(flag) + 1])
+
+
+def _sync_time(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_train_starcoder(torch, np):
+    """starcoder2-3b at full width: the compressed step of launch.train
+    --compress, warm then counted; then kernel arm vs plain arm on one
+    forward and backward. Returns the counted steps' launches."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import PipelineConfig, SyntheticPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh, steps, train
+    from repro_torch.optim import adamw, compress
+
+    arch_id = "starcoder2-3b"
+    dev = torch.device(DEVICE)
+    arch = get_arch(arch_id)
+    cfg = arch.full
+    batch, seq = _argv_int(TRAIN_FULL_ARGV, "--batch"), _argv_int(TRAIN_FULL_ARGV, "--seq")
+    n_steps = TRAIN_WARM + TRAIN_COUNTED
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = arch.init(torch.Generator(dev).manual_seed(0), cfg, device=dev)
+    params = steps.trainable(model)
+    opt = adamw.init(params)
+    resid = compress.init_residuals(params)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.values())
+    print(f"[train] {arch_id}: {n_params:,} parameters in {len(params)} tensors; weights, "
+          f"AdamW state and residuals in {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+    # launch.train's defaults: peak lr 3e-4, warm-up 20, total = the run's steps
+    opt_cfg = adamw.AdamWConfig(peak_lr=3e-4, warmup_steps=20, total_steps=n_steps)
+    cstep = train.make_compressed_dp_step(arch, cfg, opt_cfg, mesh.make_data_group(dev))
+    pipe = SyntheticPipeline(PipelineConfig(vocab=cfg.vocab, seq=seq, global_batch=batch,
+                                            seed=0))
+    times, launches = [], {}
+    for i in range(n_steps):
+        if i == TRAIN_WARM:
+            before = dict(ops.LAUNCHES)
+        b = steps.batch_to_torch(pipe.next(), dev)
+        (model, opt, resid, met), dt = _sync_time(
+            torch, lambda: cstep(model, opt, resid, b))
+        times.append(dt)
+        print(f"[train] {arch_id} step {i + 1} ({'warm' if i < TRAIN_WARM else 'counted'}): "
+              f"{dt:.3f} s, loss {float(met['loss']):.4f}, grad norm "
+              f"{float(met['grad_norm']):.4f}, lr {float(met['lr']):.3g}", flush=True)
+    launches = {k: (v - before[k]) // TRAIN_COUNTED for k, v in ops.LAUNCHES.items()
+                if v != before[k]}
+    step_s = sum(times[TRAIN_WARM:]) / TRAIN_COUNTED
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[train] {arch_id} batch {batch} x seq {seq}, compressed over one NCCL rank: "
+          f"{step_s:.3f} s a step (mean of {TRAIN_COUNTED}), {batch * seq / step_s:.0f} tokens/s, "
+          f"peak memory {peak / 2**30:.2f} GiB; launches a step {json.dumps(launches)}",
+          flush=True)
+    for k, n in TRAIN_LAUNCHES[arch_id].items():
+        if launches.get(k) != n:
+            raise AssertionError(f"{arch_id}: {k} launched {launches.get(k)} times a step, "
+                                 f"not {n}")
+    if not all(np.isfinite(t) for t in times) or not np.isfinite(float(met["loss"])):
+        raise AssertionError(f"{arch_id}: non-finite loss")
+    _train_breakdown(torch, arch, cfg, model, params, opt, resid, opt_cfg,
+                     steps.batch_to_torch(pipe.next(), dev), batch, seq)
+    del opt, resid
+    torch.cuda.empty_cache()
+
+    # kernel arm vs plain arm: one forward and backward, no update
+    b = steps.batch_to_torch(pipe.batch_at(n_steps), dev)
+    arms = {}
+    for impl in (None, "ref"):
+        (loss, _, grads), dt = _sync_time(
+            torch, lambda: steps.loss_and_grads(arch, cfg, model, b, impl=impl))
+        norm = float(adamw.global_norm(grads))
+        empty = [k for k, g in grads.items() if not bool(g.abs().sum() > 0)]
+        finite = all(bool(torch.isfinite(g).all()) for g in grads.values())
+        arms[impl] = (float(loss), norm)
+        print(f"[train] {arch_id} {'kernel' if impl is None else 'plain'} arm, one forward and "
+              f"backward: {dt:.3f} s, loss {float(loss):.6f}, grad norm {norm:.6f}, "
+              f"{len(grads)} of {len(params)} parameters with a gradient, "
+              f"{len(empty)} of them all zero, all finite: {finite}", flush=True)
+        if set(grads) != set(params) or empty or not finite:
+            raise AssertionError(f"{arch_id}: a parameter got no usable gradient")
+        del grads
+        torch.cuda.empty_cache()
+    rel = [abs(a - b) / abs(b) for a, b in zip(arms[None], arms["ref"])]
+    print(f"[train] {arch_id} kernel vs plain arm: loss rel {rel[0]:.3g}, grad norm rel "
+          f"{rel[1]:.3g} (tolerance {TRAIN_FULL_REL})", flush=True)
+    if max(rel) > TRAIN_FULL_REL:
+        raise AssertionError(f"{arch_id}: kernel and plain arms disagree")
+    del model, params
+    torch.cuda.empty_cache()
+    return launches, dict(step_s=step_s, tokens_per_s=batch * seq / step_s, peak_bytes=peak)
+
+
+def _train_breakdown(torch, arch, cfg, model, params, opt, resid, opt_cfg, b, batch, seq):
+    """One more step taken apart, a synchronise between its stages (the
+    step's own body: loss and gradients, compression, AdamW), then the
+    attention kernel's forward and the plain attention backward at one
+    layer's training shape."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import mesh, steps
+    from repro_torch.optim import adamw, compress
+
+    group = mesh.make_data_group(torch.device(DEVICE))
+    (_, _, grads), t_fb = _sync_time(torch, lambda: steps.loss_and_grads(arch, cfg, model, b))
+    _, t_c = _sync_time(torch, lambda: compress.compressed_grad_tree(grads, resid, group))
+    _, t_a = _sync_time(torch, lambda: adamw.update(opt_cfg, params, grads, opt))
+    del grads
+    a = cfg.attn
+    gen = torch.Generator(DEVICE).manual_seed(SEED)
+    q, k, v = (torch.randn(shape, generator=gen, device=DEVICE).to(torch.bfloat16)
+               for shape in ((batch, a.n_heads, seq, a.d_head),
+                             (batch, a.n_kv_heads, seq, a.d_head),
+                             (batch, a.n_kv_heads, seq, a.d_head)))
+    fwd_ms = _time_ms(torch, lambda: ops.flash_attention(q, k, v), 3)
+    out, lse = ref.flash_attention_ref(q, k, v, return_lse=True)  # warm-up
+    ref.flash_attention_bwd_ref(q, k, v, out, lse, q)
+    _, t_rf = _sync_time(torch, lambda: ref.flash_attention_ref(q, k, v, return_lse=True))
+    _, t_bwd = _sync_time(torch, lambda: ref.flash_attention_bwd_ref(q, k, v, out, lse, q))
+    n = cfg.n_layers
+    print(f"[train] {arch.arch_id} one step taken apart: loss and gradients {t_fb:.3f} s "
+          f"(of it the attention kernel {2 * n} x {fwd_ms:.3f} ms = {2 * n * fwd_ms / 1e3:.3f} s "
+          f"and the plain attention backward {n} x ({t_rf:.3f} s recomputing (out, lse) + "
+          f"{t_bwd:.3f} s) = {n * (t_rf + t_bwd):.3f} s), compression {t_c:.3f} s, AdamW "
+          f"{t_a:.3f} s", flush=True)
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(path) for f in fs)
+
+
+def phase_train_mamba(torch, np):
+    """mamba2-130m at full width through launch.train.main --compress, with
+    checkpoints, then a resume from step 4 to 6. Returns the launches of
+    both runs."""
+    import shutil
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    arch_id = "mamba2-130m"
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    argv = ["--arch", arch_id, "--compress", *TRAIN_FULL_ARGV, "--ckpt-every", "2",
+            "--ckpt-dir", CKPT_DIR, "--log-every", "1"]
+    before = dict(ops.LAUNCHES)
+    torch.cuda.reset_peak_memory_stats()
+    first = train.main(argv + ["--steps", "4"])
+    if first["step"] != 4 or first["exit"] != "completed":
+        raise AssertionError(f"{arch_id}: the first run ended at {first['step']}")
+    resumed = train.main(argv + ["--steps", "6"])
+    if resumed["step"] != 6 or [h["step"] for h in resumed["history"]] != [5, 6]:
+        raise AssertionError(f"{arch_id}: the resume did not run steps 5 and 6")
+    launches = {k: v - before[k] for k, v in ops.LAUNCHES.items() if v != before[k]}
+    per_step = {k: v // 6 for k, v in launches.items()}
+    hist = first["history"] + resumed["history"]
+    batch, seq = _argv_int(TRAIN_FULL_ARGV, "--batch"), _argv_int(TRAIN_FULL_ARGV, "--seq")
+    warm = [h["t"] for h in hist[1:]]
+    step_s = sum(warm) / len(warm)
+    ckpt = os.path.join(CKPT_DIR, "step_00000006")
+    print(f"[train] {arch_id} launch.train.main: steps 1-4, then resumed at step "
+          f"{resumed['history'][0]['step'] - 1} and ran to {resumed['step']}; losses "
+          f"{[round(h['loss'], 4) for h in hist]}; step times {[round(t, 3) for t in [h['t'] for h in hist]]} s"
+          f" (mean after the first {step_s:.3f} s, {batch * seq / step_s:.0f} tokens/s); peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; checkpoint "
+          f"{_dir_bytes(ckpt) / 1e9:.3f} GB, directory {_dir_bytes(CKPT_DIR) / 1e9:.3f} GB "
+          f"({sorted(os.listdir(CKPT_DIR))}); launches a step {json.dumps(per_step)}",
+          flush=True)
+    for k, n in TRAIN_LAUNCHES[arch_id].items():
+        if launches.get(k) != 6 * n:
+            raise AssertionError(f"{arch_id}: {k} launched {launches.get(k)} times in 6 "
+                                 f"steps, not {6 * n}")
+    if not all(np.isfinite(h["loss"]) for h in hist):
+        raise AssertionError(f"{arch_id}: non-finite loss")
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    return launches, dict(step_s=step_s, tokens_per_s=batch * seq / step_s)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -753,6 +1159,17 @@ def main() -> int:
     t0 = _stage("serve: full width, kernel and plain arms", t0)
     for name in ("flash_attention", "ssd_chunks"):
         launches[name] = serve_launches[name]
+    phase_train_golden(torch, np)
+    t0 = _stage("train: SMOKE golden on the card", t0)
+    ops.reset_launches()  # the training path's launches are counted from here
+    star_launches, _ = phase_train_starcoder(torch, np)
+    t0 = _stage("train: starcoder2-3b full width", t0)
+    mamba_launches, _ = phase_train_mamba(torch, np)
+    t0 = _stage("train: mamba2-130m full width, launch.train.main and resume", t0)
+    train_launches = {k: TRAIN_COUNTED * star_launches.get(k, 0) + mamba_launches.get(k, 0)
+                      for k in ops.LAUNCHES}
+    for name in ("int8_quantize", "int8_dequantize"):
+        launches[name] = train_launches[name]
 
     sources = {
         "rbf_gram": ("src/repro_torch/kernels/csrc/rbf_gram.cu",
@@ -765,6 +1182,10 @@ def main() -> int:
                             "src/repro/kernels/flash_attention.py:121"),
         "ssd_chunks": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
                        "src/repro/kernels/ssd_scan.py:75"),
+        "int8_quantize": ("src/repro_torch/kernels/csrc/int8_codec.cu",
+                          "src/repro/kernels/int8_codec.py:35"),
+        "int8_dequantize": ("src/repro_torch/kernels/csrc/int8_codec.cu",
+                            "src/repro/kernels/int8_codec.py:63"),
     }
     line = []
     for name, (source, replaces) in sources.items():
@@ -777,8 +1198,11 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
         }
-        if "decode_max_abs_err" in r:
-            entry["decode_max_abs_err"] = r["decode_max_abs_err"]
+        for key in ("decode_max_abs_err", "train_max_abs_err"):
+            if key in r:
+                entry[key] = r[key]
+        if name in ("flash_attention", "ssd_chunks"):
+            entry["train_launches"] = train_launches[name]
         line.append(entry)
     print(f"[total] {time.perf_counter() - t_start:.1f} s on {smi}", flush=True)
     print(json.dumps({"kernels": line}), flush=True)

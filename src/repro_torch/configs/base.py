@@ -56,6 +56,9 @@ class ArchDef:
                                impl=impl)
         return logits
 
+    def loss_fn(self, cfg, model, batch, *, impl: Optional[str] = None):
+        return lm.loss_fn(cfg, model, batch, impl=impl)
+
     def prefill(self, cfg, model, batch, *, max_cache_len: int,
                 impl: Optional[str] = None):
         return lm.prefill(cfg, model, batch["tokens"], max_cache_len=max_cache_len,

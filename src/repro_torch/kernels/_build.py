@@ -35,11 +35,12 @@ NVCC_FLAGS = [
 
 LAUNCHES: Dict[str, int] = {
     "rbf_gram": 0, "plan_argmin": 0, "pareto_mask": 0,
-    "flash_attention": 0, "ssd_chunks": 0,
+    "flash_attention": 0, "ssd_chunks": 0, "int8_quantize": 0, "int8_dequantize": 0,
 }
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_int64  # element counts: a 3e9-parameter model overflows 32 bits
 _F = ctypes.c_float
 _SIGNATURES = {
     # x, y, out, b, n, m, d, neg_gamma, device, stream
@@ -56,6 +57,10 @@ _SIGNATURES = {
     # device, stream
     "ssd_chunks_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                           _I, _P],
+    # x, q, scales, n, nb, device, stream
+    "int8_quantize_launch": [_P, _P, _P, _L, _L, _I, _P],
+    # q, scales, out, n, device, stream
+    "int8_dequantize_launch": [_P, _P, _P, _L, _I, _P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None

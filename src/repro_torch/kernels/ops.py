@@ -10,6 +10,17 @@ fallback:
 
 ``LAUNCHES`` counts the kernel launches, one per call that reached a
 kernel; ``reset_launches()`` sets every count to 0.
+
+Gradients: ``flash_attention`` and ``ssd_scan`` run inside a
+``torch.autograd.Function``, as the reference's ``_flash_vjp`` /
+``_ssd_vjp``: the forward is the kernel (CUDA) or the plain version (CPU,
+``impl="ref"``), only the inputs are saved, and the backward recomputes
+with the plain version (the chunked flash backward; the VJP of the plain
+SSD scan). Where no input needs a gradient (serving), the Function only
+runs its forward. The kernels stay forward-only, as the reference's do. A kernel
+launched through ctypes into ``torch.empty`` outputs has no ``grad_fn``:
+called bare under autograd it would leave every weight before it without
+a gradient, and no error.
 """
 
 from __future__ import annotations
@@ -20,6 +31,7 @@ import torch
 
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.int8_codec import int8_dequantize_cuda, int8_quantize_cuda
 from repro_torch.kernels.plan_grid import pareto_mask_cuda, plan_argmin_cuda
 from repro_torch.kernels.rbf_gram import rbf_gram_cuda
 from repro_torch.kernels.ssd_scan import ssd_chunks_cuda
@@ -103,12 +115,28 @@ def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = Non
     step's position), so on the card prefill and decode both launch the
     kernel.
     """
-    if not use_kernel(q, impl):
-        return ref.flash_attention_ref(q, k, v, causal=causal, window=window, scale=scale,
-                                       q_offset=q_offset, kv_len=kv_len)
-    return flash_attention_cuda(
-        q.contiguous(), k.contiguous(), v.contiguous(), causal=causal, window=window,
-        scale=scale, q_offset=q_offset, kv_len=kv_len)
+    kw = dict(causal=causal, window=window, scale=scale, q_offset=q_offset, kv_len=kv_len)
+    return _FlashAttention.apply(q, k, v, kw, impl)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward: the kernel or the plain version; saved: (q, k, v); backward:
+    (out, lse) recomputed by the plain version, then its chunked backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kw, impl):
+        ctx.kw = kw
+        ctx.save_for_backward(q, k, v)
+        if not use_kernel(q, impl):
+            return ref.flash_attention_ref(q, k, v, **kw)
+        return flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(), **kw)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        out, lse = ref.flash_attention_ref(q, k, v, return_lse=True, **ctx.kw)
+        dq, dk, dv = ref.flash_attention_bwd_ref(q, k, v, out, lse, g.to(q.dtype), **ctx.kw)
+        return dq, dk, dv, None, None
 
 
 def ssd_chunks(x, dt, a, B, C, *, heads: int, impl: Optional[str] = None):
@@ -160,9 +188,50 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 128, return_state: bool = False,
     (where the reference routes its jnp oracle); a CUDA tensor takes
     ``ssd_scan_chunked`` around the Hopper chunk kernel.
     """
-    if not use_kernel(x, impl):
-        return ref.ssd_scan_ref(x, dt, A, B, C, chunk=chunk, return_state=return_state)
-    return ssd_scan_chunked(x, dt, A, B, C, chunk=chunk, return_state=return_state)
+    return _SSDScan.apply(x, dt, A, B, C, chunk, return_state, impl)
+
+
+class _SSDScan(torch.autograd.Function):
+    """Forward: the chunk kernel's scan or the plain version; saved: the
+    inputs; backward: the VJP of the plain ``ssd_scan_ref``, recomputed."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, chunk, return_state, impl):
+        ctx.chunk, ctx.return_state = chunk, return_state
+        ctx.save_for_backward(x, dt, A, B, C)
+        if not use_kernel(x, impl):
+            return ref.ssd_scan_ref(x, dt, A, B, C, chunk=chunk, return_state=return_state)
+        return ssd_scan_chunked(x, dt, A, B, C, chunk=chunk, return_state=return_state)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = ref.ssd_scan_ref(*inputs, chunk=ctx.chunk, return_state=ctx.return_state)
+        outs = out if ctx.return_state else (out,)
+        pairs = [(o, g) for o, g in zip(outs, grads) if g is not None]
+        d = torch.autograd.grad([o for o, _ in pairs], inputs, [g for _, g in pairs],
+                                allow_unused=True)
+        return (*d, None, None, None)
 
 
 ssm_decode_step = ref.ssm_decode_step  # the recurrent step is plain torch, as in the reference
+
+
+def int8_quantize(x: torch.Tensor, *, block: int = 256, impl: Optional[str] = None):
+    """Blockwise symmetric int8: x (any shape, read flat, n elements) ->
+    (q int8 (nb·block,), scales f32 (nb,)), nb = ceil(n/block); see
+    ``ref.int8_quantize_ref``. The kernel takes block 256 only."""
+    flat = x.reshape(-1)
+    if not use_kernel(flat, impl):
+        return ref.int8_quantize_ref(flat, block=block)
+    return int8_quantize_cuda(flat.to(torch.float32).contiguous(), block=block)
+
+
+def int8_dequantize(q: torch.Tensor, scales: torch.Tensor, *, n: int, block: int = 256,
+                    impl: Optional[str] = None) -> torch.Tensor:
+    """q·scale per block, cut to n: f32 (n,)."""
+    if not use_kernel(q, impl):
+        return ref.int8_dequantize_ref(q, scales, n, block=block)
+    return int8_dequantize_cuda(q.contiguous(), scales.to(torch.float32).contiguous(),
+                                n=n, block=block)

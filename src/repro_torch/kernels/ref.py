@@ -10,7 +10,10 @@ taken left to right one elementwise op at a time (so no matmul or
 reduction reorders them), and ``T^k`` goes through ``tpow``, never
 ``torch.pow``. The attention and SSD versions mirror the reference's jnp
 oracles (chunked online softmax, chunked SSD) in float32; their kernels
-sum in another order, so they agree within a stated tolerance.
+sum in another order, so they agree within a stated tolerance. The
+flash-attention backward is plain torch only, as the reference's (its
+kernels are forward-only). The int8 codec's versions and its kernels
+compute the same roundings and agree bit for bit.
 """
 
 from __future__ import annotations
@@ -143,14 +146,17 @@ def flash_attention_ref(
     kv_len: Optional[int] = None,
     block_q: int = 512,
     block_k: int = 512,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """Chunked online-softmax attention with GQA (hk | h), in float32.
 
     The reference's ``flash_attention_ref``: q chunks (outer) by kv chunks
     (inner) with a running (max, sum, acc) carry, masked scores at -inf,
     a fully masked row gives 0. Queries sit at positions
     ``q_offset .. q_offset + sq``; keys at or past ``kv_len`` are masked.
-    Output in q's dtype.
+    Output in q's dtype; ``return_lse`` also returns the log-sum-exp of
+    every row (b, h, sq) f32, -inf for a fully masked row, which
+    ``flash_attention_bwd_ref`` recomputes the probabilities from.
     """
     b, h, sq, d = q.shape
     _, hk, skv, _ = k.shape
@@ -174,7 +180,7 @@ def flash_attention_ref(
     qs = qp.reshape(b, hk, groups, nq, bq, d)
     ks = kp.reshape(b, hk, nk, bk, d)
     vs = vp.reshape(b, hk, nk, bk, d)
-    outs = []
+    outs, lses = [], []
     for iq in range(nq):
         q_blk = qs[:, :, :, iq].float()  # (b, hk, g, bq, d)
         q_pos = q_offset + iq * bq + torch.arange(bq, device=dev)
@@ -197,8 +203,95 @@ def flash_attention_ref(
             acc = acc * corr[..., None] + torch.einsum("bkgqc,bkcd->bkgqd", p, v_blk)
             m = m_new
         outs.append((acc / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype))
+        m_safe = torch.where(torch.isfinite(m), m, 0.0)
+        lses.append(torch.where(l > 0, m_safe + torch.log(torch.clamp_min(l, 1e-30)),
+                                float("-inf")))
     out = torch.stack(outs, dim=3).reshape(b, hk, groups, nq * bq, d)
-    return out[..., :sq, :].reshape(b, h, sq, d)
+    out = out[..., :sq, :].reshape(b, h, sq, d)
+    if return_lse:
+        lse = torch.stack(lses, dim=3).reshape(b, hk, groups, nq * bq)
+        return out, lse[..., :sq].reshape(b, h, sq)
+    return out
+
+
+def flash_attention_bwd_ref(
+    q: torch.Tensor,  # (b, h, sq, d)
+    k: torch.Tensor,  # (b, hk, skv, d)
+    v: torch.Tensor,  # (b, hk, skv, d)
+    out: torch.Tensor,  # (b, h, sq, d)
+    lse: torch.Tensor,  # (b, h, sq) f32
+    dout: torch.Tensor,  # (b, h, sq, d)
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+    q_offset: int = 0,
+    kv_len: Optional[int] = None,
+    block_q: int = 512,
+    block_k: int = 512,
+):
+    """Flash-attention backward with O(S) residual memory, the reference's
+    ``flash_attention_bwd_ref`` (Dao et al., alg. 2): kv chunks (outer) by
+    q chunks (inner), probabilities recomputed from (q, k, lse), dq / dk /
+    dv accumulated chunk by chunk in float32, with the GQA group axis kept
+    in the dk / dv sums until both loops end, as the reference sums it.
+    Returns (dq, dk, dv) in the dtypes of q, k, v.
+    """
+    b, h, sq, d = q.shape
+    _, hk, skv, _ = k.shape
+    groups = h // hk
+    if scale is None:
+        scale = 1.0 / (d**0.5)
+    bq = min(block_q, sq)
+    bk = min(block_k, skv)
+    pq = (-sq) % bq
+    pk = (-skv) % bk
+
+    def pad4(x, p):
+        return torch.nn.functional.pad(x, (0, 0, 0, p)) if p else x
+
+    qp, op_, dop = pad4(q, pq), pad4(out, pq), pad4(dout, pq)
+    kp, vp = pad4(k, pk), pad4(v, pk)
+    lsep = torch.nn.functional.pad(lse, (0, pq), value=float("inf")) if pq else lse
+    nq, nk = qp.shape[2] // bq, kp.shape[2] // bk
+    eff_kv_len = kv_len if kv_len is not None else (skv if pk else None)
+    dev = q.device
+    qg = qp.reshape(b, hk, groups, nq, bq, d)
+    dog = dop.reshape(b, hk, groups, nq, bq, d)
+    lseg = lsep.reshape(b, hk, groups, nq, bq)
+    Dg = (dog.float() * op_.reshape(b, hk, groups, nq, bq, d).float()).sum(dim=-1)
+    ks = kp.reshape(b, hk, nk, bk, d)
+    vs = vp.reshape(b, hk, nk, bk, d)
+    dq = torch.zeros((b, hk, groups, nq, bq, d), dtype=torch.float32, device=dev)
+    dks, dvs = [], []
+    for jk in range(nk):
+        k_blk = ks[:, :, jk].float()  # (b, hk, bk, d)
+        v_blk = vs[:, :, jk].float()
+        k_pos = jk * bk + torch.arange(bk, device=dev)
+        dk_j = torch.zeros((b, hk, groups, bk, d), dtype=torch.float32, device=dev)
+        dv_j = torch.zeros_like(dk_j)
+        for iq in range(nq):
+            q_blk = qg[:, :, :, iq].float()  # (b, hk, g, bq, d)
+            do_blk = dog[:, :, :, iq].float()
+            q_pos = q_offset + iq * bq + torch.arange(bq, device=dev)
+            s = torch.einsum("bkgqd,bkcd->bkgqc", q_blk, k_blk) * scale
+            mask = _attn_mask(q_pos, k_pos, causal, window, eff_kv_len)
+            lse_blk = lseg[:, :, :, iq]
+            lse_safe = torch.where(torch.isfinite(lse_blk), lse_blk, 0.0)
+            p = torch.where(mask, torch.exp(s - lse_safe[..., None]), 0.0)
+            dv_j = dv_j + torch.einsum("bkgqc,bkgqd->bkgcd", p, do_blk)
+            dp = torch.einsum("bkgqd,bkcd->bkgqc", do_blk, v_blk)
+            ds = p * (dp - Dg[:, :, :, iq][..., None]) * scale
+            dq[:, :, :, iq] += torch.einsum("bkgqc,bkcd->bkgqd", ds, k_blk)
+            dk_j = dk_j + torch.einsum("bkgqc,bkgqd->bkgcd", ds, q_blk)
+        dks.append(dk_j)
+        dvs.append(dv_j)
+    dq = dq.reshape(b, hk, groups, nq * bq, d)[..., :sq, :].reshape(b, h, sq, d)
+    dk = torch.stack(dks, dim=2).sum(dim=3)  # (b, hk, nk, bk, d): groups summed once
+    dv = torch.stack(dvs, dim=2).sum(dim=3)
+    dk = dk.reshape(b, hk, nk * bk, d)[:, :, :skv]
+    dv = dv.reshape(b, hk, nk * bk, d)[:, :, :skv]
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def mha_naive_ref(q, k, v, *, causal=True, window=None, scale=None, q_offset=0,
@@ -353,3 +446,43 @@ def ssm_decode_step(
     h_new = hstate * dec[..., None, None] + upd
     y = torch.einsum("bhn,bhnp->bhp", Ch, h_new)
     return h_new, y.to(x_t.dtype)
+
+
+# ---------------------------------------------------------------------------
+# int8 block codec (plain versions of csrc/int8_codec.cu)
+# ---------------------------------------------------------------------------
+
+
+def int8_quantize_ref(x: torch.Tensor, block: int = 256):
+    """Blockwise symmetric int8 quantization of a flat vector, the
+    reference's ``int8_quantize_ref``.
+
+    x (n,) is padded with zeros to nb = ceil(n / block) blocks. A block's
+    scale is amax/127, or 1 where ``amax > 0`` is false (a zero block, or a
+    block holding a NaN: the maximum propagates NaN). amax/127 is taken as
+    the reference computes it when compiled: XLA rewrites the division by
+    the constant 127 into a product with its f32 reciprocal, under ``jit``
+    (the jitted train step) and in the Pallas kernel alike, which is one
+    ulp off a true division in about 3% of blocks. q = clip(round(x /
+    scale), -127, 127), a true division, rounding half to even; a NaN (a
+    NaN element, or any element of a block whose scale is inf) gives 0,
+    stated here because a float-to-int8 cast of NaN is not defined.
+    Returns (q int8 (nb·block,), scales f32 (nb,)).
+    """
+    xf = x.reshape(-1).to(torch.float32)
+    pad = (-xf.numel()) % block
+    if pad:
+        xf = torch.nn.functional.pad(xf, (0, pad))
+    xb = xf.reshape(-1, block)
+    amax = xb.abs().amax(dim=1)
+    scale = torch.where(amax > 0, amax * (1.0 / 127.0), torch.ones_like(amax))
+    q = torch.clamp(torch.round(xb / scale[:, None]), -127.0, 127.0)
+    q = torch.where(torch.isnan(q), torch.zeros_like(q), q)
+    return q.to(torch.int8).reshape(-1), scale
+
+
+def int8_dequantize_ref(q: torch.Tensor, scale: torch.Tensor, n: int, block: int = 256):
+    """q (nb·block,) int8, scale (nb,) f32 -> q·scale, f32 (n,)."""
+    nb = scale.shape[0]
+    x = q.reshape(nb, block).to(torch.float32) * scale[:, None]
+    return x.reshape(-1)[:n]

@@ -1,17 +1,84 @@
-"""Step functions of the serving path, the reference's ``launch/steps.py``
-(``make_prefill``, ``make_serve_step``; training waits for ROADMAP A9).
+"""Step functions, the reference's ``launch/steps.py``: ``make_train_step``,
+``make_prefill`` and ``make_serve_step``.
 
 PyTorch runs eagerly, so a step is a plain function of (model, inputs);
-``impl="ref"`` runs every kernel's plain version instead.
+``impl="ref"`` runs every kernel's plain version instead. A train step
+updates the model and the optimizer state in place (``optim/adamw.py``)
+and returns them. The reference's ``zero_shardings`` (ZeRO-1 layouts)
+belong to ``parallel/`` and are not ported (ROADMAP A9).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchDef
+from repro_torch.optim import adamw
+
+
+def trainable(model: torch.nn.Module) -> Dict[str, torch.nn.Parameter]:
+    """Turn gradients on for every parameter (a model is built for
+    serving, without them); returns {name: parameter}."""
+    model.requires_grad_(True)
+    return dict(model.named_parameters())
+
+
+def batch_to_torch(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
+    """A pipeline batch (numpy) on ``device``; token ids as int64."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        out[k] = (t.long() if not t.is_floating_point() else t).to(device)
+    return out
+
+
+def loss_and_grads(arch: ArchDef, cfg, model, batch, *, impl: Optional[str] = None):
+    """(loss, parts, grads {name: tensor in the parameter's dtype}) of one
+    batch. Every parameter must get a gradient: one that is left out of
+    the graph (a kernel output without a ``grad_fn``, say) raises."""
+    params = dict(model.named_parameters())
+    loss, parts = arch.loss_fn(cfg, model, batch, impl=impl)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return (loss.detach(), {k: v.detach() for k, v in parts.items()},
+            dict(zip(params, grads)))
+
+
+def make_train_step(arch: ArchDef, cfg, opt_cfg: adamw.AdamWConfig, *, accum: int = 1,
+                    impl: Optional[str] = None):
+    """``train_step(model, opt_state, batch) -> (model, opt_state, metrics)``
+    with metrics {loss, ce, lb, z, lr, grad_norm} (0-d tensors).
+
+    ``accum``: gradient-accumulation microbatches. As in the reference,
+    the MINOR part of the batch axis is split (microbatch i takes rows
+    i, i + accum, ...), gradients are summed in f32 and averaged (so they
+    reach AdamW as f32), and the loss and its parts are averaged."""
+
+    def train_step(model, opt_state, batch):
+        params = trainable(model)
+        if accum > 1:
+            gsum = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                    for k, p in params.items()}
+            lsum = torch.zeros((), dtype=torch.float32, device=batch["tokens"].device)
+            parts_all = []
+            for i in range(accum):
+                mb = {k: v[i::accum] for k, v in batch.items()}
+                loss, parts, grads = loss_and_grads(arch, cfg, model, mb, impl=impl)
+                for k, g in grads.items():
+                    gsum[k] += g.to(torch.float32)
+                lsum = lsum + loss
+                parts_all.append(parts)
+            grads = {k: g / accum for k, g in gsum.items()}
+            loss = lsum / accum
+            parts = {k: torch.stack([p[k] for p in parts_all]).mean() for k in parts_all[0]}
+        else:
+            loss, parts, grads = loss_and_grads(arch, cfg, model, batch, impl=impl)
+        metrics = adamw.update(opt_cfg, params, grads, opt_state)
+        return model, opt_state, {"loss": loss, **parts, **metrics}
+
+    return train_step
 
 
 def make_prefill(arch: ArchDef, cfg, *, max_cache_len: int, impl: Optional[str] = None):

@@ -80,9 +80,27 @@ def _matmul_f32(x: torch.Tensor, w_t: torch.Tensor) -> torch.Tensor:
     bf16 values are exact in f32).
     """
     if x.device.type == "cuda" and x.dtype in (torch.bfloat16, torch.float16):
-        y = torch.mm(x.reshape(-1, x.shape[-1]), w_t, out_dtype=torch.float32)
+        y = _MatmulF32Out.apply(x.reshape(-1, x.shape[-1]), w_t)
         return y.reshape(*x.shape[:-1], w_t.shape[1])
     return x.float() @ w_t.float()
+
+
+class _MatmulF32Out(torch.autograd.Function):
+    """``torch.mm(x, w_t, out_dtype=f32)`` with a backward (the op has
+    none): the f32 output gradient is rounded to the operands' dtype once,
+    and dx, dw come from two products in that dtype with f32 accumulation,
+    so no f32 copy of a (vocab, d) table is made."""
+
+    @staticmethod
+    def forward(ctx, x, w_t):
+        ctx.save_for_backward(x, w_t)
+        return torch.mm(x, w_t, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w_t = ctx.saved_tensors
+        g = g.to(x.dtype)
+        return g @ w_t.t(), x.t() @ g
 
 
 def unembed(embed: Embed, x: torch.Tensor) -> torch.Tensor:
@@ -172,6 +190,20 @@ class MLP(nn.Module):
         else:
             h = activation(self.act)(h)
         return self.down(h)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token CE in f32, the reference's ``cross_entropy``:
+    logits (..., v), labels (...) int; with ``mask``, the masked mean."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        nll = nll * mask
+        return nll.sum() / torch.clamp_min(mask.sum(), 1.0)
+    return nll.mean()
 
 
 def count_params(module: nn.Module) -> int:

@@ -15,6 +15,7 @@ pattern position i. Caches are a list with one dict per layer. Entry
 points:
 
     forward(cfg, model, tokens)                    -> (logits, aux)
+    loss_fn(cfg, model, batch)                     -> (loss, {ce, lb, z})
     prefill(cfg, model, tokens, max_cache_len=L)   -> (caches, last logits)
     decode_step(cfg, model, caches, token)         -> (caches, logits)
 """
@@ -26,6 +27,7 @@ from typing import Any, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention, common, mamba2
 from repro_torch.models.attention import AttnConfig
@@ -187,15 +189,38 @@ def _logits(cfg: LMConfig, model: LM, h: torch.Tensor) -> torch.Tensor:
 
 def forward(cfg: LMConfig, model: LM, tokens: torch.Tensor, images=None, *,
             impl: Optional[str] = None):
-    """tokens (b, s) -> (logits (b, s, vocab) f32, aux losses {lb, z})."""
+    """tokens (b, s) -> (logits (b, s, vocab) f32, aux losses {lb, z}).
+
+    With ``cfg.remat`` and grad mode on, every layer is recomputed in the
+    backward (``torch.utils.checkpoint``, non-reentrant): only each layer's
+    input is kept, as the reference's per-group ``jax.checkpoint``. The
+    reference's ``scan_nest`` (a second level of recomputation that keeps
+    fewer of those inputs) changes memory only; the port keeps one input a
+    layer for every config.
+    """
     if images is not None:
         raise NotImplementedError(f"images: {NOT_PORTED}")
     h = _embed_inputs(cfg, model, tokens)
     positions = torch.arange(h.shape[1], device=h.device)
+    remat = cfg.remat and torch.is_grad_enabled()
     for blk, kind in zip(model.blocks, cfg.kinds()):
-        h = _block_forward(blk, cfg, kind, h, positions, impl=impl)
+        if remat:
+            h = checkpoint(_block_forward, blk, cfg, kind, h, positions, impl=impl,
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            h = _block_forward(blk, cfg, kind, h, positions, impl=impl)
     zero = torch.zeros((), dtype=torch.float32, device=h.device)
     return _logits(cfg, model, h), {"lb": zero, "z": zero}
+
+
+def loss_fn(cfg: LMConfig, model: LM, batch, *, impl: Optional[str] = None):
+    """batch {tokens (b, s), labels (b, s), [mask]} -> (loss, {ce, lb, z}),
+    the reference's ``loss_fn``; the MoE terms are zero (no MoE kind is
+    ported)."""
+    logits, aux = forward(cfg, model, batch["tokens"], batch.get("images"), impl=impl)
+    loss = common.cross_entropy(logits, batch["labels"], batch.get("mask"))
+    total = loss + cfg.moe_aux_weight * aux["lb"] + cfg.moe_z_weight * aux["z"]
+    return total, {"ce": loss, **aux}
 
 
 def prefill(cfg: LMConfig, model: LM, tokens: torch.Tensor, *, max_cache_len: int,

@@ -244,3 +244,157 @@ def test_smoke_lm_on_the_card_runs_the_kernels(cuda, arch_id):
     torch.testing.assert_close(got.prefill_logits, want.prefill_logits, rtol=0, atol=1e-4)
     for a, b in zip(got.step_logits, want.step_logits):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the int8 codec (the training path's kernels)
+# ---------------------------------------------------------------------------
+
+
+def _codec_edges():
+    """Zero, NaN, +inf, -inf and half-way blocks, then a ragged tail."""
+    rng = np.random.default_rng(5)
+    blocks = [np.zeros(256, np.float32)]
+    for bad in (np.nan, np.inf, -np.inf):
+        b = (rng.standard_normal(256) * 3).astype(np.float32)
+        b[rng.integers(256)] = bad
+        blocks.append(b)
+    b = np.zeros(256, np.float32)
+    b[0] = 127.0
+    b[1:9] = [0.5, 1.5, 2.5, -2.5, -0.5, 126.5, -126.5, 3.5]
+    blocks.append(b)
+    blocks.append((rng.standard_normal(77) * 1e-3).astype(np.float32))
+    return np.concatenate(blocks)
+
+
+@pytest.mark.parametrize("n", [1, 255, 256, 1000, 70001, 1000003, -1])
+def test_int8_codec_kernels_match_plain_bit_for_bit(cuda, n):
+    from repro_torch.kernels import ops
+
+    x_np = _codec_edges() if n < 0 else (
+        np.random.default_rng(n).standard_normal(n) * 2.0).astype(np.float32)
+    x = torch.from_numpy(x_np).to(cuda)
+    before = dict(ops.LAUNCHES)
+    q, s = ops.int8_quantize(x)
+    x_back = ops.int8_dequantize(q, s, n=x.numel())
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["int8_quantize"] == before["int8_quantize"] + 1
+    assert ops.LAUNCHES["int8_dequantize"] == before["int8_dequantize"] + 1
+    q_ref, s_ref = ops.int8_quantize(x, impl="ref")
+    assert torch.equal(q, q_ref)
+    assert torch.equal(s.view(torch.int32), s_ref.view(torch.int32))
+    back_ref = ops.int8_dequantize(q_ref, s_ref, n=x.numel(), impl="ref")
+    assert torch.equal(x_back.view(torch.int32), back_ref.view(torch.int32))
+    assert x_back.shape == x.shape and q.numel() == s.numel() * 256
+
+
+def test_int8_codec_kernels_take_unaligned_views(cuda):
+    from repro_torch.kernels import ops
+
+    x = torch.randn(5000, device=cuda)[3:]  # 12 bytes past an aligned start
+    q, s = ops.int8_quantize(x)
+    q_ref, s_ref = ops.int8_quantize(x, impl="ref")
+    assert torch.equal(q, q_ref) and torch.equal(s, s_ref)
+    qv = q[4:]  # an int8 view 4 bytes in, of 7 whole blocks
+    back = ops.int8_dequantize(qv[: 7 * 256], s[1:8], n=1700)
+    assert torch.equal(back, ops.int8_dequantize(qv[: 7 * 256], s[1:8], n=1700, impl="ref"))
+
+
+# ---------------------------------------------------------------------------
+# gradients through the kernels
+# ---------------------------------------------------------------------------
+
+
+def test_flash_attention_kernel_under_autograd(cuda):
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda)
+               for s in ((2, 6, 67, 32), (2, 2, 67, 32), (2, 2, 67, 32)))
+    w = torch.from_numpy(rng.standard_normal((2, 6, 67, 32)).astype(np.float32)).to(cuda)
+    grads = {}
+    for impl in (None, "ref"):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        before = ops.LAUNCHES["flash_attention"]
+        out = ops.flash_attention(*leaves, causal=True, window=24, impl=impl)
+        assert ops.LAUNCHES["flash_attention"] - before == (1 if impl is None else 0)
+        assert out.grad_fn is not None
+        (out * w).sum().backward()
+        grads[impl] = [t.grad for t in leaves]
+    for a, b in zip(grads[None], grads["ref"]):
+        assert a is not None and bool(torch.isfinite(a).all())
+        # the backward recomputes with the plain version from the saved inputs
+        assert torch.equal(a, b)
+
+
+def test_ssd_scan_kernel_under_autograd(cuda):
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(1)
+    x, dt, A, B, C = _ssd_inputs(rng, 2, 100, 4, 8, 1, 16, cuda)
+    w = torch.randn(2, 100, 4, 8, device=cuda)
+    grads = {}
+    for impl in (None, "ref"):
+        leaves = [t.clone().requires_grad_(True) for t in (x, dt, A, B, C)]
+        before = ops.LAUNCHES["ssd_chunks"]
+        y = ops.ssd_scan(*leaves, chunk=32, impl=impl)
+        assert ops.LAUNCHES["ssd_chunks"] - before == (1 if impl is None else 0)
+        (y * w).sum().backward()
+        grads[impl] = [t.grad for t in leaves]
+    for a, b in zip(grads[None], grads["ref"]):
+        assert a is not None and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("arch_id", ["starcoder2-3b", "mamba2-130m"])
+def test_smoke_lm_training_on_the_card_gives_every_parameter_a_gradient(cuda, arch_id):
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+
+    arch = get_arch(arch_id)
+    cfg = arch.smoke
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 40), device=cuda,
+                                     generator=torch.Generator(cuda).manual_seed(0))}
+    batch["labels"] = torch.roll(batch["tokens"], -1, dims=1)
+    name = "ssd_chunks" if arch_id.startswith("mamba") else "flash_attention"
+    out = {}
+    for impl in (None, "ref"):
+        model = arch.init(torch.Generator(cuda).manual_seed(4), cfg, device=cuda)
+        params = steps.trainable(model)
+        before = ops.LAUNCHES[name]
+        loss, _, grads = steps.loss_and_grads(arch, cfg, model, batch, impl=impl)
+        launched = ops.LAUNCHES[name] - before
+        # forward and the per-layer recomputation in the backward
+        assert launched == (2 * cfg.n_layers if impl is None else 0)
+        assert set(grads) == set(params)
+        assert all(bool(torch.isfinite(g).all()) and bool(g.abs().sum() > 0)
+                   for g in grads.values())
+        out[impl] = (loss, grads)
+    torch.testing.assert_close(out[None][0], out["ref"][0], rtol=0, atol=1e-5)
+    for k in out[None][1]:
+        g, r = out[None][1][k], out["ref"][1][k]
+        torch.testing.assert_close(g, r, rtol=1e-3, atol=1e-4 * float(r.abs().max()))
+
+
+def test_f32_output_matmul_has_the_gradient_of_its_f32_form(cuda):
+    """The bf16 unembedding on the card (``torch.mm(..., out_dtype=f32)``,
+    which has no derivative of its own) against autograd through the same
+    product in f32: the output gradient is rounded to bf16 once and the two
+    products round their results to bf16, so 2^-7 of each gradient's scale."""
+    from repro_torch.models import common
+
+    gen = torch.Generator(cuda).manual_seed(0)
+    x = torch.randn(3, 64, 96, generator=gen, device=cuda).bfloat16().requires_grad_(True)
+    table = torch.randn(200, 96, generator=gen, device=cuda).bfloat16().requires_grad_(True)
+    w = torch.randn(3, 64, 200, generator=gen, device=cuda)
+    y = common._matmul_f32(x, table.t())
+    assert y.dtype == torch.float32 and y.grad_fn is not None
+    (y * w).sum().backward()
+    xf = x.detach().float().requires_grad_(True)
+    tf = table.detach().float().requires_grad_(True)
+    ((xf @ tf.t()) * w).sum().backward()
+    torch.testing.assert_close(y, (xf @ tf.t()).detach(), rtol=0, atol=1e-3)
+    for got, want in ((x.grad, xf.grad), (table.grad, tf.grad)):
+        assert got.dtype == torch.bfloat16
+        torch.testing.assert_close(got.float(), want, rtol=0,
+                                   atol=2.0 ** -7 * float(want.abs().max()))

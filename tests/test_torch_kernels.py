@@ -15,6 +15,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.int8_codec import int8_dequantize_cuda, int8_quantize_cuda
 from repro_torch.kernels.plan_grid import pareto_mask_cuda, plan_argmin_cuda
 from repro_torch.kernels.rbf_gram import rbf_gram_cuda
 from repro_torch.kernels.ssd_scan import ssd_chunks_cuda
@@ -199,6 +200,8 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     xs, dts, A, B, C = (torch.from_numpy(a) for a in _ssd_inputs(1, 20, 2, 4, 1, 8, seed=0))
     ops.ssd_scan(xs, dts, A, B, C, chunk=16)
     ops.ssd_scan_chunked(xs, dts, A, B, C, chunk=16)
+    qq, sc = ops.int8_quantize(torch.ones(300))
+    ops.int8_dequantize(qq, sc, n=300)
     assert dict(ops.LAUNCHES) == before
     assert not ops.use_kernel(x) and not ops.use_kernel(x, "ref")
 
@@ -209,7 +212,8 @@ def test_dispatch_rejects_unknown_impl():
 
 
 @pytest.mark.parametrize(
-    "which", ["rbf_gram", "plan_argmin", "pareto_mask", "flash_attention", "ssd_chunks"])
+    "which", ["rbf_gram", "plan_argmin", "pareto_mask", "flash_attention", "ssd_chunks",
+              "int8_quantize", "int8_dequantize"])
 def test_cuda_wrappers_refuse_host_tensors(which):
     """A wrapper launches its kernel on CUDA tensors or raises; it never
     computes on the host."""
@@ -227,6 +231,10 @@ def test_cuda_wrappers_refuse_host_tensors(which):
             q = torch.zeros((1, 2, 4, 16))
             flash_attention_cuda(q, q, q, causal=True, window=None, scale=None,
                                  q_offset=0, kv_len=None)
+        elif which == "int8_quantize":
+            int8_quantize_cuda(torch.zeros(300))
+        elif which == "int8_dequantize":
+            int8_dequantize_cuda(torch.zeros(512, dtype=torch.int8), torch.ones(2), n=300)
         else:
             ssd_chunks_cuda(torch.zeros((2, 1, 16, 8)), torch.zeros((2, 1, 16)),
                             torch.zeros((2, 1, 16)), torch.zeros((1, 16, 1, 4)),
@@ -236,7 +244,8 @@ def test_cuda_wrappers_refuse_host_tensors(which):
 
 def test_build_inputs_and_failure_mode(monkeypatch):
     names = [p.name for p in _build.sources()]
-    assert names == ["flash_attention.cu", "plan_grid.cu", "rbf_gram.cu", "ssd_scan.cu"]
+    assert names == ["flash_attention.cu", "int8_codec.cu", "plan_grid.cu", "rbf_gram.cu",
+                     "ssd_scan.cu"]
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert _build.BUILD_DIR.parts[-2:] == ("build", "repro_torch_kernels")
@@ -251,7 +260,8 @@ def test_build_inputs_and_failure_mode(monkeypatch):
 
 
 @pytest.mark.parametrize(
-    "src", ["rbf_gram.cu", "plan_grid.cu", "flash_attention.cu", "ssd_scan.cu"])
+    "src", ["rbf_gram.cu", "plan_grid.cu", "flash_attention.cu", "ssd_scan.cu",
+            "int8_codec.cu"])
 def test_cuda_sources_carry_their_note(src):
     text = (_build.CSRC / src).read_text()
     head = text[: text.index("#include")]
@@ -267,7 +277,8 @@ def test_reset_launches_zeroes_every_count():
         ops.LAUNCHES["rbf_gram"] += 3
         ops.reset_launches()
         assert set(ops.LAUNCHES) == {"rbf_gram", "plan_argmin", "pareto_mask",
-                                     "flash_attention", "ssd_chunks"}
+                                     "flash_attention", "ssd_chunks", "int8_quantize",
+                                     "int8_dequantize"}
         assert all(v == 0 for v in ops.LAUNCHES.values())
     finally:
         ops.LAUNCHES.update(saved)
@@ -427,3 +438,176 @@ def test_ssm_decode_step_matches_reference():
     got_h, got_y = ops.ssm_decode_step(*(torch.from_numpy(v) for v in args))
     np.testing.assert_allclose(got_h.numpy(), np.asarray(want_h), rtol=0, atol=1e-6)
     np.testing.assert_allclose(got_y.numpy(), np.asarray(want_y), rtol=0, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# gradients: the autograd wrappers of flash attention and the SSD scan
+# against jax.grad through the reference's custom VJPs
+# ---------------------------------------------------------------------------
+
+# (b, h, hk, sq, d, causal, window, block): causal, window, GQA 6/2, ragged
+# sq with small blocks
+FLASH_GRAD_CASES = [
+    (2, 4, 4, 40, 16, True, None, 512),
+    (1, 4, 2, 48, 16, True, 12, 512),
+    (1, 6, 2, 37, 16, True, None, 512),
+    (2, 6, 2, 67, 32, True, None, 16),
+    (1, 4, 2, 45, 16, False, None, 16),
+]
+
+
+@pytest.mark.parametrize("b,h,hk,s,d,causal,window,block", FLASH_GRAD_CASES)
+def test_flash_attention_gradients_match_reference(b, h, hk, s, d, causal, window, block):
+    import jax
+
+    q, k, v = _qkv(b, h, hk, s, s, d, seed=s + h + d)
+    w = np.random.default_rng(s).standard_normal((b, h, s, d)).astype(np.float32)
+    kw = dict(causal=causal, window=window)
+
+    def jloss(q, k, v):
+        return jnp.sum(jops.flash_attention(q, k, v, impl="ref", block_q=block,
+                                            block_k=block, **kw) * w)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_(True) for a in (q, k, v))
+    before = dict(ops.LAUNCHES)
+    if block == 512:
+        out = ops.flash_attention(tq, tk, tv, **kw)
+    else:  # the plain backward at the reference's small blocks
+        out = ops._FlashAttention.apply(tq, tk, tv, dict(kw, scale=None, q_offset=0,
+                                                         kv_len=None), "ref")
+        dq, dk, dv = ref.flash_attention_bwd_ref(
+            tq.detach(), tk.detach(), tv.detach(),
+            *ref.flash_attention_ref(tq.detach(), tk.detach(), tv.detach(), return_lse=True,
+                                     block_q=block, block_k=block, **kw),
+            torch.from_numpy(w), block_q=block, block_k=block, **kw)
+        for g, wt in zip((dq, dk, dv), want):
+            np.testing.assert_allclose(g.numpy(), np.asarray(wt), rtol=0, atol=2e-5)
+    assert out.grad_fn is not None
+    (out * torch.from_numpy(w)).sum().backward()
+    assert dict(ops.LAUNCHES) == before
+    # f32 sums over the kv chunks in another order
+    for t, wt in zip((tq, tk, tv), want):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(wt), rtol=0, atol=2e-5)
+
+
+def test_flash_attention_lse_matches_reference():
+    q, k, v = _qkv(1, 4, 2, 45, 45, 16, seed=9)
+    _, want = jref.flash_attention_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                       window=8, block_q=16, block_k=16, return_lse=True)
+    out, lse = ref.flash_attention_ref(*(torch.from_numpy(a) for a in (q, k, v)), window=8,
+                                       block_q=16, block_k=16, return_lse=True)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want), rtol=0, atol=2e-6)
+    _, none = ref.flash_attention_ref(*(torch.from_numpy(a) for a in (q, k, v)), kv_len=0,
+                                      return_lse=True)
+    assert torch.isneginf(none).all()
+
+
+@pytest.mark.parametrize("s,chunk,g", [(64, 16, 1), (50, 16, 2), (40, 32, 1)])
+def test_ssd_scan_gradients_match_reference(s, chunk, g):
+    """s not a multiple of the chunk included."""
+    import jax
+
+    arrs = _ssd_inputs(2, s, 4, 8, g, 16, seed=s * 3 + g)
+    w = np.random.default_rng(s).standard_normal((2, s, 4, 8)).astype(np.float32)
+
+    def jloss(*a):
+        return jnp.sum(jops.ssd_scan(*a, chunk=chunk, impl="ref") * w)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2, 3, 4))(*(jnp.asarray(a) for a in arrs))
+    t = [torch.from_numpy(a).requires_grad_(True) for a in arrs]
+    y = ops.ssd_scan(*t, chunk=chunk)
+    assert y.grad_fn is not None and "SSDScan" in type(y.grad_fn).__name__
+    (y * torch.from_numpy(w)).sum().backward()
+    for name, a, wt in zip("x dt A B C".split(), t, want):
+        wt = np.asarray(wt)
+        # f32 sums over chunk and state in another order, relative to scale
+        np.testing.assert_allclose(a.grad.numpy(), wt, rtol=0,
+                                   atol=2e-5 * max(1.0, np.abs(wt).max()), err_msg=name)
+
+
+def test_kernel_wrappers_skip_autograd_without_grad():
+    """Serving (no input needs a gradient) calls the kernels bare, so the
+    serving paths' launch counts stay as they were."""
+    q = torch.zeros((1, 2, 3, 16))
+    assert ops.flash_attention(q, q, q).grad_fn is None
+    with torch.no_grad():
+        qg = q.clone().requires_grad_(True)
+        assert ops.flash_attention(qg, q, q).grad_fn is None
+
+
+# ---------------------------------------------------------------------------
+# int8 codec: the plain version against the reference's, bit for bit
+# ---------------------------------------------------------------------------
+
+
+def _codec_input(n, seed):
+    x = (np.random.default_rng(seed).standard_normal(n) * 3.0).astype(np.float32)
+    return x
+
+
+def _edge_input():
+    """Blocks of: zeros; a NaN; +inf; -inf; half-way values at scale 1 (amax
+    127: 0.5, 1.5, 2.5, -2.5 round to 0, 2, 2, -2); ties at scale 0.5; a
+    ragged tail of 100."""
+    blocks = [np.zeros(256, np.float32)]
+    b = _codec_input(256, 1); b[17] = np.nan; blocks.append(b)
+    b = _codec_input(256, 2); b[3] = np.inf; blocks.append(b)
+    b = _codec_input(256, 3); b[200] = -np.inf; blocks.append(b)
+    b = np.zeros(256, np.float32); b[0] = 127.0
+    b[1:9] = [0.5, 1.5, 2.5, -2.5, -0.5, 126.5, -126.5, 3.5]; blocks.append(b)
+    b = np.zeros(256, np.float32); b[0] = 63.5; b[1:5] = [0.25, 0.75, -1.25, 1e-30]
+    blocks.append(b)
+    blocks.append(_codec_input(100, 4))
+    return np.concatenate(blocks)
+
+
+CODEC_CASES = [("n", 1), ("n", 255), ("n", 256), ("n", 1000), ("n", 16384), ("n", 70001),
+               ("edge", 0)]
+
+
+@pytest.mark.parametrize("kind,n", CODEC_CASES)
+def test_int8_codec_matches_reference_bit_for_bit(kind, n):
+    from repro.kernels.int8_codec import int8_dequantize_pallas, int8_quantize_pallas
+
+    x = _edge_input() if kind == "edge" else _codec_input(n, n)
+    n = x.size
+    nb = -(-n // 256)
+    import jax
+
+    # the reference as it runs in its train step: jitted, where XLA takes
+    # amax / 127 as amax * f32(1/127)
+    want_q, want_s = (np.asarray(a) for a in jax.jit(jref.int8_quantize_ref)(jnp.asarray(x)))
+    got_q, got_s = ops.int8_quantize(torch.from_numpy(x))
+    assert got_q.dtype == torch.int8 and tuple(got_q.shape) == (nb * 256,)
+    assert got_s.dtype == torch.float32 and tuple(got_s.shape) == (nb,)
+    np.testing.assert_array_equal(got_q.numpy(), want_q)
+    np.testing.assert_array_equal(got_s.numpy().view(np.uint32), want_s.view(np.uint32))
+    # called eagerly, jnp divides: scales within one ulp of the port's
+    _, eager_s = (np.asarray(a) for a in jref.int8_quantize_ref(jnp.asarray(x)))
+    ulps = np.abs(got_s.numpy().view(np.int32).astype(np.int64) - eager_s.view(np.int32))
+    assert ulps.max() <= 1
+    # the Pallas kernel pads to 64-block row groups: its first nb blocks
+    pal_q, pal_s = (np.asarray(a) for a in int8_quantize_pallas(jnp.asarray(x),
+                                                                 interpret=True))
+    np.testing.assert_array_equal(got_q.numpy(), pal_q[: nb * 256])
+    np.testing.assert_array_equal(got_s.numpy().view(np.uint32),
+                                  pal_s[:nb].view(np.uint32))
+    want_x = np.asarray(jref.int8_dequantize_ref(jnp.asarray(want_q), jnp.asarray(want_s), n))
+    got_x = ops.int8_dequantize(got_q, got_s, n=n)
+    assert tuple(got_x.shape) == (n,)
+    np.testing.assert_array_equal(got_x.numpy().view(np.uint32), want_x.view(np.uint32))
+    pal_x = np.asarray(int8_dequantize_pallas(jnp.asarray(pal_q), jnp.asarray(pal_s), n=n,
+                                              interpret=True))
+    np.testing.assert_array_equal(got_x.numpy().view(np.uint32), pal_x.view(np.uint32))
+
+
+def test_int8_codec_edge_blocks_follow_the_reference_rules():
+    x = _edge_input()
+    q, s = ops.int8_quantize(torch.from_numpy(x))
+    q, s = q.numpy().reshape(-1, 256), s.numpy()
+    assert s[0] == 1.0 and not q[0].any()  # zero block: scale 1
+    assert s[1] == 1.0 and q[1, 17] == 0  # NaN block: scale 1, the NaN gives 0
+    assert np.isinf(s[2]) and np.isinf(s[3]) and not q[2].any() and not q[3].any()
+    assert s[4] == 1.0 and list(q[4, :9]) == [127, 0, 2, 2, -2, 0, 126, -126, 4]
+    assert (np.abs(q) <= 127).all()
