@@ -14,8 +14,9 @@ Phases (every failure raises; nothing is caught):
    captured in one CUDA graph and replayed between CUDA events, so the
    host's dispatch is not in the time (eager back-to-back calls are printed
    beside it). flash_attention at starcoder2-3b's prefill, decode and
-   training shapes (with F.scaled_dot_product_attention timed as the
-   library yardstick; the port never calls it), ssd_chunks at mamba2-130m's
+   training shapes, its output and its lse (with
+   F.scaled_dot_product_attention timed as the library yardstick; the
+   port never calls it), ssd_chunks at mamba2-130m's
    prefill and training shapes, the int8 codec at starcoder2-3b's embedding
    and MLP weights, a ragged size and edge blocks (zero, NaN, inf,
    half-way).
@@ -46,8 +47,11 @@ Phases (every failure raises; nothing is caught):
 8. train starcoder2-3b at full width (batch 2 x seq 4,096, random weights
    from a seed) with the compressed step launch.train --compress builds:
    2 warm steps, 3 counted (step time, tokens/s, peak memory, launches a
-   step against their expectation); then the kernel arm against the plain
-   arm (impl="ref") on one forward and backward without an update.
+   step against their expectation), one step taken apart (with the
+   attention kernel's forward and (out, lse) recompute, and the plain
+   attention backward, timed at one layer's shape); then the kernel arm
+   against the plain arm (impl="ref") on one forward and backward without
+   an update.
 9. train mamba2-130m at full width through launch.train.main --compress
    (batch 2 x seq 4,096, 4 steps, checkpoints every 2 under
    build/chip_smoke_ckpt/), then a second main that resumes from step 4
@@ -83,6 +87,11 @@ DEVICE = "cuda"
 # same f32 value to bf16 once, so they differ by at most one bf16 ulp,
 # 2^-7 of |want|, with atol for outputs near 0
 FLASH_TOL = {"float32": (0.0, 2e-5), "bfloat16": (2.0 ** -7, 1e-4)}
+# flash_attention's lse against the plain version's, per element |err| <=
+# rtol |want| + atol, and -inf exactly where the plain version's is: f32
+# sums of the same products in another order (the tensor cores' f32
+# accumulation on the bf16 paths), exp2 / log2 with the scale folded in
+LSE_TOL = (1e-5, 1e-4)
 # ssd_chunks, kernel vs plain: f32 sums of up to T*n terms in another order
 # and a cumsum taken as a scan, relative to the output's scale
 SSD_REL = 1e-4
@@ -112,17 +121,20 @@ COMPRESSED_CLOSE_SHARE = 0.75
 # reaches 1.3e-5 and 1.7e-5 on the host, a sound one 1.5e-7 and 1.4e-6
 COMPRESSED_MEDIAN_ATOL = 5e-6
 # full width, kernel arm vs plain arm on one forward and backward (bf16),
-# the loss and the global grad norm, relative: the backward is the plain
-# recompute in both arms, so only the forward kernels' one-ulp outputs
-# differ; read 1.9e-7 (loss) and 6.4e-6 (grad norm) on the card
+# the loss and the global grad norm, relative: the kernel arm's backward
+# recomputes (out, lse) with the kernel and the plain arm's with the plain
+# version, so both the forward's and the recompute's one-ulp outputs differ
+# (the plain chunked backward is common to both)
 TRAIN_FULL_REL = 1e-3
 TRAIN_FULL_ARGV = ["--batch", "2", "--seq", "4096"]  # the reference's train_4k sequence
 TRAIN_WARM, TRAIN_COUNTED = 2, 3
-# launches a step: starcoder2-3b has 30 layers (attention forward and its
-# recomputation) and 393 parameter tensors; mamba2-130m 24 layers and 218
-# tensors; each tensor quantizes 3 times and dequantizes once
+# launches a step: starcoder2-3b has 30 layers (the attention forward, its
+# per-layer recomputation, and the backward's recompute of (out, lse)) and
+# 393 parameter tensors; mamba2-130m 24 layers (the SSD forward and its
+# recomputation) and 218 tensors; each tensor quantizes 3 times and
+# dequantizes once
 TRAIN_LAUNCHES = {
-    "starcoder2-3b": {"flash_attention": 60, "int8_quantize": 1179, "int8_dequantize": 393},
+    "starcoder2-3b": {"flash_attention": 90, "int8_quantize": 1179, "int8_dequantize": 393},
     "mamba2-130m": {"ssd_chunks": 48, "int8_quantize": 654, "int8_dequantize": 218},
 }
 CODEC_SIZES = (150_994_944, 37_748_736, 1_000_003)  # the embedding, an MLP weight, ragged
@@ -414,8 +426,10 @@ def _check_codec(torch, np, kind):
 
 
 def _flash_case(torch, np, rng, kind, b, h, hk, sq, skv, d, dtype, **kw):
-    """One flash_attention shape: kernel vs plain, timed beside its bound."""
-    from repro_torch.kernels import ops
+    """One flash_attention shape: kernel vs plain (the output and its lse),
+    timed beside its bound and SDPA."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda, launch_plan
 
     dev = torch.device(DEVICE)
     q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, dtype)
@@ -433,6 +447,20 @@ def _flash_case(torch, np, rng, kind, b, h, hk, sq, skv, d, dtype, **kw):
     if worst > 1.0:
         raise AssertionError(f"flash_attention {(b, h, hk, sq, skv, d)}: an error is "
                              f"{worst:.3g} x its tolerance ({rtol:.3g} |want| + {atol:.3g})")
+    lse_kw = dict(causal=True, window=None, q_offset=0, kv_len=None)
+    lse_kw.update(kw)
+    _, lse = flash_attention_cuda(q, k, v, scale=None, return_lse=True, **lse_kw)
+    _, lse_want = ref.flash_attention_ref(q, k, v, return_lse=True, **lse_kw)
+    torch.cuda.synchronize()
+    masked = torch.isneginf(lse_want)
+    lse_diff = (lse[~masked] - lse_want[~masked]).abs()
+    lse_err = float(lse_diff.max()) if lse_diff.numel() else 0.0
+    lse_worst = float((lse_diff / (LSE_TOL[0] * lse_want[~masked].abs() + LSE_TOL[1])).max())
+    if (not torch.equal(torch.isneginf(lse), masked) or lse_worst > 1.0
+            or not bool(torch.isfinite(lse[~masked]).all())):
+        raise AssertionError(f"flash_attention {(b, h, hk, sq, skv, d)}: lse differs from the "
+                             f"plain version's (max |err| {lse_err:.3g}, worst element at "
+                             f"{lse_worst:.3g} x its tolerance)")
     # the work: the (query, key) pairs each row sees, 4 d flops a pair
     # (QK^T and PV); each input read once, the output written once
     kv_len = kw.get("kv_len") or skv
@@ -444,8 +472,7 @@ def _flash_case(torch, np, rng, kind, b, h, hk, sq, skv, d, dtype, **kw):
     n_ops = 4.0 * b * h * d * pairs
     n_bytes = q.element_size() * (2 * b * h * sq * d + 2 * b * hk * kv_len * d)
     bound, by = _bound_ms(n_bytes, n_ops, BF16_OPS_PER_S)
-    fp32_bound, _ = _bound_ms(n_bytes, n_ops)
-    reps = 5 if sq > 1 else 200
+    reps = 20 if sq > 1 else 200
     ms = _time_ms(torch, lambda: ops.flash_attention(q, k, v, **kw), reps)
     eager = _eager_ms(torch, lambda: ops.flash_attention(q, k, v, **kw), reps)
     plain_ms = _time_ms(torch, lambda: ops.flash_attention(q, k, v, impl="ref", **kw),
@@ -455,14 +482,17 @@ def _flash_case(torch, np, rng, kind, b, h, hk, sq, skv, d, dtype, **kw):
     lib_causal = bool(kw.get("causal", True)) and sq > 1
     library_ms = _time_ms(torch, lambda: F.scaled_dot_product_attention(
         q, ks, vs, is_causal=lib_causal, enable_gqa=True), reps)
+    plan = launch_plan(b, h, hk, sq, skv, d, dtype, kv_len)
     print(f"[kernel] flash_attention b={b} h={h} hk={hk} sq={sq} kv_len={kv_len} d={d} "
-          f"{str(dtype).replace('torch.', '')} {kw}: {ms:.4f} ms (eager calls {eager:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bound * 1e3:.2f} us "
-          f"by {by} at the bf16 tensor-core rate, {fp32_bound * 1e3:.1f} us at the fp32 "
-          f"rate, max |err| {err:.3g} of max |want| {float(want.float().abs().max()):.3g}, "
-          f"worst element at {worst:.3g} x its tolerance) on {kind}", flush=True)
+          f"{str(dtype).replace('torch.', '')} {kw} ({plan.path}, splits {plan.splits}): "
+          f"{ms:.4f} ms = {ms / library_ms:.2f} x sdpa {library_ms:.4f} ms and "
+          f"{ms / bound:.2f} x the bound {bound * 1e3:.2f} us by {by} at the bf16 tensor-core "
+          f"rate (eager calls {eager:.4f} ms, plain {plain_ms:.4f} ms; max |err| {err:.3g} of "
+          f"max |want| {float(want.float().abs().max()):.3g}, worst element at {worst:.3g} x "
+          f"its tolerance; lse max |err| {lse_err:.3g}, worst at {lse_worst:.3g} x "
+          f"{LSE_TOL[0]} |lse| + {LSE_TOL[1]}) on {kind}", flush=True)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, max_abs_err=err,
-                library_ms=library_ms)
+                library_ms=library_ms, lse_max_abs_err=lse_err)
 
 
 def _check_flash(torch, np, rng, kind):
@@ -476,9 +506,13 @@ def _check_flash(torch, np, rng, kind):
                          q_offset=1055, kv_len=1056)
     train = _flash_case(torch, np, rng, kind, 2, 24, 2, 4096, 4096, 128, bf16, causal=True)
     # the JSON line carries the prefill shape, the larger share of the
-    # serving time, and the other shapes' errors under their own keys
-    return dict(prefill, decode_max_abs_err=decode["max_abs_err"],
-                train_max_abs_err=train["max_abs_err"])
+    # serving time, and the other shapes' errors and times under their own
+    # keys
+    out = dict(prefill)
+    for name, r in (("decode", decode), ("train", train)):
+        for key in ("max_abs_err", "lse_max_abs_err", "ms", "library_ms", "bound_ms"):
+            out[f"{name}_{key}"] = r[key]
+    return out
 
 
 def _check_ssd(torch, np, rng, kind):
@@ -1043,10 +1077,11 @@ def phase_train_starcoder(torch, np):
 
 def _train_breakdown(torch, arch, cfg, model, params, opt, resid, opt_cfg, b, batch, seq):
     """One more step taken apart, a synchronise between its stages (the
-    step's own body: loss and gradients, compression, AdamW), then the
-    attention kernel's forward and the plain attention backward at one
-    layer's training shape."""
+    step's own body: loss and gradients, compression, AdamW), then, at one
+    layer's training shape, the attention kernel's forward, its (out, lse)
+    recompute in the backward, and the plain attention backward."""
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.launch import mesh, steps
     from repro_torch.optim import adamw, compress
 
@@ -1062,16 +1097,22 @@ def _train_breakdown(torch, arch, cfg, model, params, opt, resid, opt_cfg, b, ba
                              (batch, a.n_kv_heads, seq, a.d_head),
                              (batch, a.n_kv_heads, seq, a.d_head)))
     fwd_ms = _time_ms(torch, lambda: ops.flash_attention(q, k, v), 3)
-    out, lse = ref.flash_attention_ref(q, k, v, return_lse=True)  # warm-up
-    ref.flash_attention_bwd_ref(q, k, v, out, lse, q)
-    _, t_rf = _sync_time(torch, lambda: ref.flash_attention_ref(q, k, v, return_lse=True))
+
+    def recompute():
+        return flash_attention_cuda(q, k, v, causal=True, window=None, scale=None,
+                                    q_offset=0, kv_len=None, return_lse=True)
+
+    rec_ms = _time_ms(torch, recompute, 3)
+    out, lse = recompute()
+    ref.flash_attention_bwd_ref(q, k, v, out, lse, q)  # warm-up
     _, t_bwd = _sync_time(torch, lambda: ref.flash_attention_bwd_ref(q, k, v, out, lse, q))
     n = cfg.n_layers
+    kernel_s = (2 * fwd_ms + rec_ms) * n / 1e3
     print(f"[train] {arch.arch_id} one step taken apart: loss and gradients {t_fb:.3f} s "
-          f"(of it the attention kernel {2 * n} x {fwd_ms:.3f} ms = {2 * n * fwd_ms / 1e3:.3f} s "
-          f"and the plain attention backward {n} x ({t_rf:.3f} s recomputing (out, lse) + "
-          f"{t_bwd:.3f} s) = {n * (t_rf + t_bwd):.3f} s), compression {t_c:.3f} s, AdamW "
-          f"{t_a:.3f} s", flush=True)
+          f"(of it the attention kernel {kernel_s:.3f} s: {2 * n} x {fwd_ms:.3f} ms forward "
+          f"and recomputation, {n} x {rec_ms:.3f} ms recomputing (out, lse) in the backward; "
+          f"the plain attention backward {n} x {t_bwd:.3f} s = {n * t_bwd:.3f} s), "
+          f"compression {t_c:.3f} s, AdamW {t_a:.3f} s", flush=True)
 
 
 def _dir_bytes(path: str) -> int:
@@ -1198,9 +1239,10 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
         }
-        for key in ("decode_max_abs_err", "train_max_abs_err"):
-            if key in r:
-                entry[key] = r[key]
+        # the other shapes' numbers (flash_attention's decode and training,
+        # ssd_chunks' training) and flash_attention's lse error
+        entry.update({key: val for key, val in r.items()
+                      if key.startswith(("decode_", "train_", "lse_"))})
         if name in ("flash_attention", "ssd_chunks"):
             entry["train_launches"] = train_launches[name]
         line.append(entry)

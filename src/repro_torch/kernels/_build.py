@@ -49,10 +49,10 @@ _SIGNATURES = {
     "plan_argmin_launch": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
     # t, e, mask, out, B, G, device, stream
     "pareto_mask_launch": [_P, _P, _P, _P, _I, _I, _I, _P],
-    # q, k, v, o, b, h, hk, sq, skv, d, is_bf16, scale, causal, window,
-    # kv_len, q_offset, device, stream
-    "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I,
-                               _I, _I, _I, _P],
+    # q, k, v, o, lse, scratch, scratch elements, b, h, hk, sq, skv, d,
+    # is_bf16, scale, causal, window, kv_len, q_offset, splits, device, stream
+    "flash_attention_launch": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _F,
+                               _I, _I, _I, _I, _I, _I, _P],
     # x, dt, a, B, C, y, states, c_decay, chunk_decay, b, h, g, nc, T, p, n,
     # device, stream
     "ssd_chunks_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

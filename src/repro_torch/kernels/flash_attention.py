@@ -4,21 +4,80 @@ Attention of q (b, h, sq, d) over k, v (b, hk, skv, d) with grouped-query
 heads read by index (query head i reads kv head i // (h // hk)), causal,
 sliding-window and ``kv_len`` masks, and queries at positions
 ``q_offset .. q_offset + sq``. ``kv_len`` and ``q_offset`` are launch
-arguments, so decode steps launch the kernel too. The plain version is
-``ref.flash_attention_ref``; ``ops.flash_attention`` dispatches.
+arguments, so decode steps launch the kernel too. With ``return_lse`` it
+also returns the log-sum-exp of every row, which the backward recomputes
+the probabilities from. The plain version is ``ref.flash_attention_ref``;
+``ops.flash_attention`` dispatches.
+
+``launch_plan`` says which of the kernel's paths a call takes, with its
+tiles, key splits and scratch; it is a pure function of the shapes, so the
+host tests check it.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+import math
+from dataclasses import dataclass
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 
-HEAD_DIMS = (16, 32, 64, 128)  # csrc/flash_attention.cu: launch_dim
+HEAD_DIMS = (16, 32, 64, 128)  # csrc/flash_attention.cu: flash_attention_launch
 DTYPES = (torch.float32, torch.bfloat16)
-MAX_BATCH_HEADS = 65535  # the grid's y extent
+MAX_BATCH_HEADS = 65535  # the f32 kernels' grid y extent
+DECODE_BELOW_SQ = 16  # kDecodeBelowSq
+MMA_TILE_Q, MMA_TILE_K = 64, 64  # the bf16 tile kernel: one warpgroup's rows, keys a tile
+DECODE_TILE_K = 64  # kDecTileK
+FMA_TILE_Q, FMA_TILE_K = 64, 32  # the f32 tile kernel
+H100_SMS = 132
+
+
+@dataclass(frozen=True)
+class LaunchPlan:
+    """One call's path through ``csrc/flash_attention.cu``.
+
+    ``path``: "mma_tile" (bf16, sq >= 16: wgmma on the tensor cores),
+    "mma_decode" (bf16, sq < 16: the query rows of a kv group packed into
+    one mma.sync tile, keys split over blocks, then a merge), "fma_tile" /
+    "fma_row" (f32). ``rows`` is the query rows a block takes (packed rows
+    of a kv group on the decode path), ``tile_k`` the keys a tile,
+    ``splits`` the key splits, ``scratch_shape`` the f32 partials (b, hk,
+    packed rows, splits, d + 2) of the decode path, () elsewhere.
+    """
+
+    path: str
+    rows: int
+    tile_k: int
+    splits: int
+    scratch_shape: Tuple[int, ...]
+
+
+def launch_plan(b: int, h: int, hk: int, sq: int, skv: int, d: int, dtype,
+                kv_len: Optional[int] = None, sms: int = H100_SMS) -> LaunchPlan:
+    """The kernel's path for these shapes (``kv_len`` defaults to ``skv``;
+    ``sms`` is the card's SM count)."""
+    kv_len = skv if kv_len is None else kv_len
+    if dtype == torch.float32:
+        if sq < DECODE_BELOW_SQ:
+            return LaunchPlan("fma_row", 1, 1, 1, ())
+        return LaunchPlan("fma_tile", FMA_TILE_Q, FMA_TILE_K, 1, ())
+    if sq >= DECODE_BELOW_SQ:
+        return LaunchPlan("mma_tile", MMA_TILE_Q, MMA_TILE_K, 1, ())
+    packed = (h // hk) * sq
+    rows = 16 if packed <= 16 else 32 if packed <= 32 else 64
+    key_tiles = max(1, math.ceil(kv_len / DECODE_TILE_K))
+    # at least two blocks an SM where the cache has that many key tiles
+    splits = max(1, min(key_tiles, math.ceil(2 * sms / (b * hk))))
+    return LaunchPlan("mma_decode", rows, DECODE_TILE_K, splits,
+                      (b, hk, packed, splits, d + 2))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: int) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check(name: str, a: torch.Tensor, dtype) -> None:
@@ -36,10 +95,11 @@ def _check(name: str, a: torch.Tensor, dtype) -> None:
 def flash_attention_cuda(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     causal: bool, window: Optional[int], scale: Optional[float],
-    q_offset: int, kv_len: Optional[int],
-) -> torch.Tensor:
-    """q (b, h, sq, d), k/v (b, hk, skv, d), f32 or bf16 CUDA -> (b, h, sq, d)
-    in q's dtype."""
+    q_offset: int, kv_len: Optional[int], return_lse: bool = False,
+):
+    """q (b, h, sq, d), k/v (b, hk, skv, d), f32 or bf16 CUDA -> out (b, h,
+    sq, d) in q's dtype, or (out, lse (b, h, sq) f32, -inf for a fully
+    masked row) with ``return_lse``."""
     if q.dtype not in DTYPES:
         raise ValueError(f"flash_attention: dtype {q.dtype} not in {DTYPES}")
     _check("q", q, q.dtype)
@@ -67,15 +127,23 @@ def flash_attention_cuda(
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window {window} < 1")
     out = torch.empty_like(q)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if return_lse else None
     if out.numel() == 0 or skv == 0:
-        return out.zero_()
+        out.zero_()
+        return (out, lse.fill_(float("-inf"))) if return_lse else out
     scale = 1.0 / (d**0.5) if scale is None else float(scale)
     dev = q.device.index if q.device.index is not None else torch.cuda.current_device()
+    plan = launch_plan(b, h, hk, sq, skv, d, q.dtype, kv_len, _sm_count(dev))
+    scratch = (torch.empty(plan.scratch_shape, dtype=torch.float32, device=q.device)
+               if plan.scratch_shape else None)
     _build.launch(
         "flash_attention", "flash_attention_launch",
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        0 if lse is None else lse.data_ptr(),
+        0 if scratch is None else scratch.data_ptr(),
+        0 if scratch is None else scratch.numel(),
         b, h, hk, sq, skv, d, int(q.dtype == torch.bfloat16), scale, int(bool(causal)),
-        0 if window is None else int(window), kv_len, int(q_offset),
+        0 if window is None else int(window), kv_len, int(q_offset), plan.splits,
         dev, torch.cuda.current_stream(dev).cuda_stream,
     )
-    return out
+    return (out, lse) if return_lse else out

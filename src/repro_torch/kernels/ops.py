@@ -14,10 +14,12 @@ kernel; ``reset_launches()`` sets every count to 0.
 Gradients: ``flash_attention`` and ``ssd_scan`` run inside a
 ``torch.autograd.Function``, as the reference's ``_flash_vjp`` /
 ``_ssd_vjp``: the forward is the kernel (CUDA) or the plain version (CPU,
-``impl="ref"``), only the inputs are saved, and the backward recomputes
-with the plain version (the chunked flash backward; the VJP of the plain
-SSD scan). Where no input needs a gradient (serving), the Function only
-runs its forward. The kernels stay forward-only, as the reference's do. A kernel
+``impl="ref"``) and only the inputs are saved. The flash backward
+recomputes (out, lse) through the same dispatch as its forward (the
+kernel on the card) and then runs the plain chunked backward; the SSD
+backward is the VJP of the plain scan. Where no input needs a gradient
+(serving), the Function only runs its forward. The kernels stay
+forward-only, as the reference's do. A kernel
 launched through ctypes into ``torch.empty`` outputs has no ``grad_fn``:
 called bare under autograd it would leave every weight before it without
 a gradient, and no error.
@@ -119,22 +121,28 @@ def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = Non
     return _FlashAttention.apply(q, k, v, kw, impl)
 
 
+def _flash_forward(q, k, v, kw, impl, return_lse=False):
+    if not use_kernel(q, impl):
+        return ref.flash_attention_ref(q, k, v, return_lse=return_lse, **kw)
+    return flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
+                                return_lse=return_lse, **kw)
+
+
 class _FlashAttention(torch.autograd.Function):
     """Forward: the kernel or the plain version; saved: (q, k, v); backward:
-    (out, lse) recomputed by the plain version, then its chunked backward."""
+    (out, lse) recomputed through the forward's dispatch, then the plain
+    chunked backward."""
 
     @staticmethod
     def forward(ctx, q, k, v, kw, impl):
-        ctx.kw = kw
+        ctx.kw, ctx.impl = kw, impl
         ctx.save_for_backward(q, k, v)
-        if not use_kernel(q, impl):
-            return ref.flash_attention_ref(q, k, v, **kw)
-        return flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(), **kw)
+        return _flash_forward(q, k, v, kw, impl)
 
     @staticmethod
     def backward(ctx, g):
         q, k, v = ctx.saved_tensors
-        out, lse = ref.flash_attention_ref(q, k, v, return_lse=True, **ctx.kw)
+        out, lse = _flash_forward(q, k, v, ctx.kw, ctx.impl, return_lse=True)
         dq, dk, dv = ref.flash_attention_bwd_ref(q, k, v, out, lse, g.to(q.dtype), **ctx.kw)
         return dq, dk, dv, None, None
 

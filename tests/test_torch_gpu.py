@@ -127,13 +127,25 @@ FLASH_CASES = [
     (1, 4, 2, 20, 40, 64, True, 8, 30, 25),  # rows 2.. fully masked (tile kernel)
     (1, 4, 2, 4, 40, 64, True, 8, 30, 25),  # the same on the row kernel
     (1, 2, 1, 3, 8, 32, False, None, 0, 0),  # kv_len 0: every row masked
+    # the bf16 kernels' edges: sq and skv off the 64-row and 64-key tiles
+    (1, 4, 2, 93, 150, 128, False, None, 0, None),
+    (2, 4, 2, 70, 131, 64, True, None, 61, None),  # causal, queries at 61..130
+    (1, 4, 2, 200, 200, 64, True, 40, 0, None),  # the window's edge inside key tiles
+    # decode, packed rows of a kv group: groups 1, 4 and 12
+    (2, 2, 2, 1, 300, 64, False, None, 299, 300),
+    (2, 8, 2, 1, 200, 128, False, None, 150, 151),
+    (2, 12, 2, 4, 90, 32, True, None, 86, 90),  # 24 packed rows: a 32-row block
+    (1, 24, 2, 3, 500, 128, True, None, 400, 403),  # 36 packed rows: a 64-row block
+    (1, 24, 2, 8, 130, 64, True, 50, 100, 108),  # 96 packed rows: two row blocks
+    (1, 4, 2, 1, 1024, 128, False, 100, 1000, 1001),  # more splits than visible key tiles
 ]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", FLASH_CASES)
 def test_flash_attention_kernel_matches_plain(cuda, case, dtype):
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
 
     b, h, hk, sq, skv, d, causal, window, q_offset, kv_len = case
     dt = getattr(torch, dtype)
@@ -160,6 +172,20 @@ def test_flash_attention_kernel_matches_plain(cuda, case, dtype):
         assert not got.any()
     if window == 8:  # q_pos - 7 >= kv_len: no key left
         assert not got[:, :, 2:].any()
+
+    # lse, the backward's residual: -inf exactly where the plain version's
+    # is; elsewhere f32 sums of the same products in another order (the
+    # tensor cores' f32 accumulation on the bf16 paths) and exp2 / log2 with
+    # the scale folded in: about 1e-6 of |lse|, held to 1e-5 |lse| + 1e-4
+    out2, lse = flash_attention_cuda(q, k, v, scale=None, return_lse=True, **kw)
+    _, lse_want = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out2, got)
+    assert lse.dtype == torch.float32 and lse.shape == (b, h, sq)
+    masked = torch.isneginf(lse_want)
+    assert torch.equal(torch.isneginf(lse), masked)
+    assert bool(torch.isfinite(lse[~masked]).all())
+    torch.testing.assert_close(lse[~masked], lse_want[~masked], rtol=1e-5, atol=1e-4)
 
 
 def test_flash_attention_kernel_rejects_what_it_does_not_take(cuda):
@@ -305,11 +331,19 @@ def test_int8_codec_kernels_take_unaligned_views(cuda):
 # ---------------------------------------------------------------------------
 
 
-def test_flash_attention_kernel_under_autograd(cuda):
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_kernel_under_autograd(cuda, dtype):
+    """Kernel arm against plain arm: the backward recomputes (out, lse)
+    through the forward's dispatch, so on the kernel arm it launches the
+    kernel a second time and its inputs are the kernel's. f32: out within
+    2e-5 and lse within ~1e-6 move each gradient by well under 1e-3 of its
+    scale; bf16: out differs by one bf16 ulp (2^-8 relative) and every
+    gradient is rounded to bf16 once, so a few ulps, 2^-6 of its scale."""
     from repro_torch.kernels import ops
 
+    dt = getattr(torch, dtype)
     rng = np.random.default_rng(0)
-    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda, dt)
                for s in ((2, 6, 67, 32), (2, 2, 67, 32), (2, 2, 67, 32)))
     w = torch.from_numpy(rng.standard_normal((2, 6, 67, 32)).astype(np.float32)).to(cuda)
     grads = {}
@@ -319,12 +353,16 @@ def test_flash_attention_kernel_under_autograd(cuda):
         out = ops.flash_attention(*leaves, causal=True, window=24, impl=impl)
         assert ops.LAUNCHES["flash_attention"] - before == (1 if impl is None else 0)
         assert out.grad_fn is not None
-        (out * w).sum().backward()
+        (out.float() * w).sum().backward()
+        # the forward and the backward's recompute of (out, lse)
+        assert ops.LAUNCHES["flash_attention"] - before == (2 if impl is None else 0)
         grads[impl] = [t.grad for t in leaves]
+    rtol = 1e-3 if dt == torch.float32 else 2.0 ** -6
     for a, b in zip(grads[None], grads["ref"]):
-        assert a is not None and bool(torch.isfinite(a).all())
-        # the backward recomputes with the plain version from the saved inputs
-        assert torch.equal(a, b)
+        assert a is not None and a.dtype == dt and bool(torch.isfinite(a).all())
+        scale = float(b.float().abs().max())
+        atol = (1e-4 if dt == torch.float32 else 2.0 ** -6) * scale
+        torch.testing.assert_close(a.float(), b.float(), rtol=rtol, atol=atol)
 
 
 def test_ssd_scan_kernel_under_autograd(cuda):
@@ -364,8 +402,10 @@ def test_smoke_lm_training_on_the_card_gives_every_parameter_a_gradient(cuda, ar
         before = ops.LAUNCHES[name]
         loss, _, grads = steps.loss_and_grads(arch, cfg, model, batch, impl=impl)
         launched = ops.LAUNCHES[name] - before
-        # forward and the per-layer recomputation in the backward
-        assert launched == (2 * cfg.n_layers if impl is None else 0)
+        # forward, the per-layer recomputation in the backward, and the
+        # attention backward's recompute of (out, lse) (SSD: the first two)
+        per_layer = 2 if name == "ssd_chunks" else 3
+        assert launched == (per_layer * cfg.n_layers if impl is None else 0)
         assert set(grads) == set(params)
         assert all(bool(torch.isfinite(g).all()) and bool(g.abs().sum() > 0)
                    for g in grads.values())

@@ -6,6 +6,8 @@ rules and the ``tpow`` rule.
 Inputs are made from a seed with numpy and handed to both packages.
 """
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,11 +16,13 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import _build, ops, ref
-from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.flash_attention import flash_attention_cuda, launch_plan
 from repro_torch.kernels.int8_codec import int8_dequantize_cuda, int8_quantize_cuda
 from repro_torch.kernels.plan_grid import pareto_mask_cuda, plan_argmin_cuda
 from repro_torch.kernels.rbf_gram import rbf_gram_cuda
 from repro_torch.kernels.ssd_scan import ssd_chunks_cuda
+
+from test_torch_gpu import FLASH_CASES as GPU_FLASH_CASES
 
 TIME_FLOOR = 1e-6
 EPS32 = float(np.finfo(np.float32).eps)
@@ -534,6 +538,79 @@ def test_kernel_wrappers_skip_autograd_without_grad():
     with torch.no_grad():
         qg = q.clone().requires_grad_(True)
         assert ops.flash_attention(qg, q, q).grad_fn is None
+
+
+@pytest.mark.parametrize("impl", [None, "ref"])
+def test_flash_backward_recomputes_through_the_forward_dispatch(impl):
+    """The backward recomputes (out, lse) through the forward's dispatch: on
+    the CPU that is the plain version for both impls, so the gradients are
+    jax.grad through the reference's ``_flash_vjp`` (GQA 6/2, a window, a
+    query offset and kv_len below skv), and nothing launches."""
+    import jax
+
+    q, k, v = _qkv(1, 6, 2, 20, 33, 16, seed=21)
+    w = np.random.default_rng(22).standard_normal((1, 6, 20, 16)).astype(np.float32)
+    kw = dict(causal=True, window=10, scale=None, q_offset=13, kv_len=30)
+
+    def jloss(q, k, v):
+        return jnp.sum(jops.flash_attention(q, k, v, impl="ref", **kw) * w)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    before = dict(ops.LAUNCHES)
+    out = ops._FlashAttention.apply(*leaves, kw, impl)
+    assert type(out.grad_fn).__name__ == "_FlashAttentionBackward"
+    (out * torch.from_numpy(w)).sum().backward()
+    assert dict(ops.LAUNCHES) == before
+    # f32 sums over the kv chunks in another order
+    for t, wt in zip(leaves, want):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(wt), rtol=0, atol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# the flash kernel's launch plan: which path of csrc/flash_attention.cu a
+# call takes (the tile sizes, key splits and scratch the kernel assumes)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", GPU_FLASH_CASES)
+def test_flash_launch_plan_of_every_kernel_case(case, dtype):
+    b, h, hk, sq, skv, d, causal, window, q_offset, kv_len = case
+    plan = launch_plan(b, h, hk, sq, skv, d, dtype, kv_len)
+    if dtype == torch.float32:
+        assert plan.path == ("fma_row" if sq < 16 else "fma_tile")
+        assert plan.scratch_shape == () and plan.splits == 1
+    elif sq >= 16:
+        assert plan.path == "mma_tile" and (plan.rows, plan.tile_k) == (64, 64)
+        assert plan.scratch_shape == () and plan.splits == 1
+    else:
+        packed = h // hk * sq
+        assert plan.path == "mma_decode" and plan.tile_k == 64
+        # the smallest of 16, 32, 64 rows that holds the packed rows, at most 64
+        assert plan.rows == min(r for r in (16, 32, 64) if r >= min(packed, 64))
+        key_tiles = max(1, math.ceil((skv if kv_len is None else kv_len) / 64))
+        assert 1 <= plan.splits <= key_tiles
+        assert b * hk * plan.splits >= 264 or plan.splits == key_tiles
+        assert plan.scratch_shape == (b, hk, packed, plan.splits, d + 2)
+
+
+def test_flash_launch_plan_at_starcoder2_shapes():
+    for sq in (1024, 4096):  # prefill (b 8) and training (b 2)
+        plan = launch_plan(8 if sq == 1024 else 2, 24, 2, sq, sq, 128, torch.bfloat16)
+        assert (plan.path, plan.rows, plan.tile_k, plan.scratch_shape) == ("mma_tile", 64, 64, ())
+    # a decode step: the 12 query heads of a kv group packed into one
+    # 16-row tile; 16 (b, kv head) pairs need 17 splits for 264 blocks, and
+    # the cache has 17 key tiles
+    decode = launch_plan(8, 24, 2, 1, 1064, 128, torch.bfloat16, kv_len=1056)
+    assert decode.path == "mma_decode" and decode.rows == 16 and decode.splits == 17
+    assert decode.scratch_shape == (8, 2, 12, 17, 130)
+    # another card's SM count; a short cache caps the splits at its key tiles
+    assert launch_plan(8, 24, 2, 1, 1064, 128, torch.bfloat16, 1056, sms=114).splits == 15
+    assert launch_plan(1, 24, 2, 1, 100, 128, torch.bfloat16).splits == 2
+    # SMOKE width (f32) takes the FMA kernels
+    assert launch_plan(2, 3, 1, 40, 40, 16, torch.float32).path == "fma_tile"
+    assert launch_plan(2, 3, 1, 1, 40, 16, torch.float32).path == "fma_row"
 
 
 # ---------------------------------------------------------------------------

@@ -367,3 +367,17 @@ def test_trajectory_script_dry_run_on_the_host(capsys):
     np.testing.assert_allclose(arms["f32"]["loss"], arms["uncompressed"]["loss"], rtol=1e-6)
     np.testing.assert_allclose(arms["lr/10"]["lr"], np.asarray(arms["uncompressed"]["lr"]) / 10,
                                rtol=1e-6)
+
+
+def test_smoke_phases_script_needs_a_card(capsys):
+    """``scripts/smoke_phases_torch.py`` times a checkout's serving and
+    training phases on the card; on the host it exits non-zero and runs
+    nothing."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(__file__), "..", "scripts", "smoke_phases_torch.py")
+    spec = importlib.util.spec_from_file_location("smoke_phases_torch", path)
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    assert script.main(["change"]) == 2
+    assert "no CUDA device" in capsys.readouterr().err
