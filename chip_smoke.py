@@ -141,10 +141,11 @@ CODEC_SIZES = (150_994_944, 37_748_736, 1_000_003)  # the embedding, an MLP weig
 CKPT_DIR = os.path.join(HERE, "build", "chip_smoke_ckpt")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate, fp32 outside the tensor
-# cores, dense bf16 on the tensor cores
+# cores, dense bf16 and TF32 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
+TF32_OPS_PER_S = 495e12
 
 
 def _stage(name: str, t0: float) -> float:
@@ -522,8 +523,9 @@ def _check_ssd(torch, np, rng, kind):
     prefill = _ssd_case(torch, np, rng, kind, 8, 8)
     train = _ssd_case(torch, np, rng, kind, 2, 32)
     # the JSON line carries the prefill shape (the serving path's), and the
-    # training shape's error under its own key
-    return dict(prefill, train_max_abs_err=train["max_abs_err"])
+    # training shape's numbers under their own keys
+    return dict(prefill, **{f"train_{key}": train[key]
+                            for key in ("max_abs_err", "ms", "bound_ms", "fp32_bound_ms")})
 
 
 def _ssd_case(torch, np, rng, kind, b, nc):
@@ -556,20 +558,26 @@ def _ssd_case(torch, np, rng, kind, b, nc):
         err = max(err, e)
     # the least work: C B^T and M x on the causal triangle of each chunk,
     # and the chunk state, in f32 multiply-adds; each input read once and
-    # each output written once
+    # each output written once. Two bounds: those products on the fp32
+    # cores, and as the kernel runs them, in 3xTF32 on the tensor cores
+    # (three TF32 products for each f32 one)
     tri = T * (T + 1) // 2
     n_ops = 2.0 * b * h * nc * (tri * n + tri * p + T * n * p)
     n_bytes = 4.0 * (2 * b * h * nc * T * p + 2 * b * h * nc * T + 2 * b * nc * T * g * n
                      + b * h * nc * (n * p + T * n + 1))
-    bound, by = _bound_ms(n_bytes, n_ops)
+    fp32_bound, fp32_by = _bound_ms(n_bytes, n_ops)
+    bound, by = _bound_ms(n_bytes, 3 * n_ops, TF32_OPS_PER_S)
     ms = _time_ms(torch, lambda: ops.ssd_chunks(x, dt, a, B, C, heads=h), 20)
     eager = _eager_ms(torch, lambda: ops.ssd_chunks(x, dt, a, B, C, heads=h), 20)
     plain_ms = _time_ms(torch, lambda: ops.ssd_chunks(x, dt, a, B, C, heads=h, impl="ref"), 3)
     print(f"[kernel] ssd_chunks bh={b * h} nc={nc} T={T} p={p} n={n}: {ms:.4f} ms (eager "
-          f"calls {eager:.4f} ms, plain {plain_ms:.4f} ms, bound {bound * 1e3:.2f} us by {by}, "
-          f"max |err| {err:.3g}) on {kind}", flush=True)
+          f"calls {eager:.4f} ms, plain {plain_ms:.4f} ms; bound {bound * 1e3:.2f} us by {by} "
+          f"in 3xTF32 on the tensor cores ({n_bytes / 1e6:.1f} MB, {3 * n_ops / 1e9:.2f} "
+          f"GFLOP), {ms / bound:.2f} x it; fp32-core bound {fp32_bound * 1e3:.2f} us by "
+          f"{fp32_by}, {ms / fp32_bound:.2f} x it; max |err| {err:.3g}, tolerance "
+          f"{SSD_REL} of each output's scale) on {kind}", flush=True)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, max_abs_err=err,
-                library_ms=None)
+                library_ms=None, fp32_bound_ms=fp32_bound)
 
 
 def _port_energy_grid(np, torch, node_seed, app, n):
@@ -1242,7 +1250,7 @@ def main() -> int:
         # the other shapes' numbers (flash_attention's decode and training,
         # ssd_chunks' training) and flash_attention's lse error
         entry.update({key: val for key, val in r.items()
-                      if key.startswith(("decode_", "train_", "lse_"))})
+                      if key.startswith(("decode_", "train_", "lse_", "fp32_"))})
         if name in ("flash_attention", "ssd_chunks"):
             entry["train_launches"] = train_launches[name]
         line.append(entry)

@@ -11,29 +11,51 @@
 // wrapper as torch ops (kernels/ops.py:ssd_scan_chunked), as in the
 // reference.
 //
-// What bounds it on an H100: operations. At the mamba2-130m prefill shape
-// (b*h 192, 8 chunks, T 128, p 64, n 128) a chunk needs, on the causal
-// triangle of T(T+1)/2 pairs, tri*n (C B^T) + tri*p (M x) multiply-adds,
-// plus T*n*p (states): 8.1 GFLOP a call in all, 0.121 ms at the fp32 rate
-// of 67 TFLOP/s (the reference asks for f32 dot products), against about
-// 261 MB moved (0.078 ms at 3.35 TB/s).
+// What bounds it on an H100: at the mamba2-130m prefill shape (b*h 192, 8
+// chunks, T 128, p 64, n 128) a chunk needs, on the causal triangle of
+// T(T+1)/2 pairs, tri*n (C B^T) + tri*p (M x) multiply-adds, plus T*n*p
+// (states): 2.63 M a chunk, 8.1 GFLOP a call, 0.121 ms at the fp32 rate of
+// 67 TFLOP/s (the reference asks for f32 dot products). This kernel runs
+// them on the tensor cores as 3xTF32 (three TF32 products for each f32
+// one): 24.3 GFLOP, 0.049 ms at 495 TFLOP/s. So as built, bytes bound it:
+// 261.6 MB moved, 0.078 ms at 3.35 TB/s.
 //
-// Design (a first version that is right; no tensor cores yet):
-// * One block of 256 threads per (chunk, b*h). B and C are read per group
-//   (head h of H reads group h / (H / G) of the (b, S, G, n) inputs): the
+// Design:
+// * One block of 8 warps per (b, chunk, head), heads fastest in a 1-D grid
+//   (b*h*nc blocks, no 65,535 limit): the heads of a group read the same B
+//   and C rows one after another, from L2. B and C are read per group (head
+//   h of H reads group h / (H / G) of the (b, S, G, n) inputs): the
 //   reference repeats them to H heads first.
-// * The block stages B and C transposed (n-major, row stride T + 4) and x
-//   (T-major) in shared memory as f32; rows and columns are zero-padded to
-//   multiples of 4, so every product below runs over float4 micro-tiles of
-//   4 x 4 outputs per thread: two 16-byte shared loads feed 16 FMAs.
-// * a_cum is a block-level inclusive scan (Hillis-Steele) in shared memory.
-// * B, C, x and the whole T x T matrix M do not fit in 227 KB together at
-//   T = n = 128, p = 64, so M is built 64 rows at a time (rows i0..i0+63
-//   need only columns j < i0 + 64), stored transposed, and consumed by the
-//   y_intra product before the next row tile: 202,240 bytes of shared memory
-//   in all at that shape, one block per SM.
-// * c_decay is written while C is staged; all math is f32 with fmaf and the
-//   accurate expf.
+// * The block stages B, C and x row-major in shared memory as f32 with
+//   cp.async (16-byte copies where rows are aligned), in flight while a_cum
+//   is scanned; T and n are zero-padded to multiples of 16 and x to 64
+//   columns, and row strides are 4 mod 32 floats, so that every fragment
+//   load below hits 32 banks. c_decay is written from the staged C.
+//   171,520 bytes at the largest shape: one block per SM.
+// * All three products are mma.sync m16n8k8 TF32 with f32 accumulation, in
+//   3xTF32: each f32 operand is split at fragment load into hi (TF32) and
+//   lo = v - hi, and a b = al bh + ah bl + ah bh (lo lo, 2^-22 relative,
+//   dropped), so the products keep about f32 accuracy with TF32 off
+//   everywhere else. Each of the three runs over all of a warp's tiles
+//   before the next, so no mma waits on the one before it. mma.sync, not
+//   wgmma: wgmma's TF32 form wants both operands K-major, and x as the B
+//   operand of M x is MN-major.
+// * A warp owns a 16-row strip i0 .. i0 + 15 of the chunk (warps w and
+//   w + 4, which share a scheduler, take strips w and 7 - w). It runs S =
+//   C B^T on the causal columns j < i0 + 16 only (the tile count is a
+//   template argument, so the loops carry no branch), builds M = S *
+//   exp(a_cum[i] - a_cum[j]) * dt[j] (0 above the diagonal) in the
+//   accumulator's epilogue with the accurate expf, and multiplies M by x
+//   straight from registers: the accumulator holds columns 2t and 2t + 1
+//   of each 8-column tile where the A fragment wants t and t + 4, so the k
+//   index of M x is permuted (slot t <-> column 2t, slot t + 4 <-> 2t + 1)
+//   and x's B fragment reads the rows in the same order. M never goes
+//   through shared memory.
+// * The chunk state (Bw)^T x uses the same permuted k (over t) to read B
+//   transposed without bank conflicts. Its 16-row tiles go to the warps
+//   through a counter in shared memory, so warps with short causal strips
+//   take more of them.
+// * No --use_fast_math: expf is the accurate one, as in the plain version.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -42,162 +64,322 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kRowTile = 64;
+constexpr int kWarps = kThreads / 32;
 constexpr int kMaxT = 128;
 constexpr int kMaxN = 128;
 constexpr int kMaxP = 64;
-constexpr int kMaxSmemBytes = 232448;
+// the dynamic shared memory of the largest layout (T 128, n 128, p 64):
+// 171,520 bytes, under the 232,448 an SM gives one block
+constexpr int kMaxSmemBytes = 4 * (2 * kMaxT * (kMaxN + 4) + kMaxT * (kMaxP + 4) + 3 * kMaxT);
+constexpr int kQTiles = kMaxP / 8;  // 8-column tiles of y and of the state
+constexpr int kLdx = kMaxP + 4;     // x's row stride in shared memory
+constexpr int kMaxDevices = 64;
 
-__host__ __device__ __forceinline__ int round4(int v) { return (v + 3) & ~3; }
+__host__ __device__ __forceinline__ int round_up(int v, int m) { return (v + m - 1) / m * m; }
 
-__host__ __device__ __forceinline__ size_t smem_floats(int T, int n, int p) {
-  const int Tp = round4(T);
-  return (size_t)2 * round4(n) * (Tp + 4) + (size_t)Tp * round4(p) + (size_t)Tp * kRowTile +
-         (size_t)3 * Tp;
+// the shared-memory layout: T and n padded to 16 (row strips, state row
+// tiles), x to all kMaxP columns (so the y and state tiles need no branch);
+// row strides of 4 mod 32 floats
+struct Layout {
+  int Tp, Np, ldbc;
+};
+
+__host__ __device__ __forceinline__ Layout make_layout(int T, int N) {
+  Layout l;
+  l.Tp = round_up(T, 16);
+  l.Np = round_up(N, 16);
+  l.ldbc = round_up(l.Np, 32) + 4;
+  return l;
 }
 
-__device__ __forceinline__ void fma4x4(float (&acc)[4][4], float4 a, float4 b) {
-  const float av[4] = {a.x, a.y, a.z, a.w};
-  const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
+__host__ __device__ __forceinline__ size_t smem_bytes(const Layout& l) {
+  return sizeof(float) * ((size_t)2 * l.Tp * l.ldbc + (size_t)l.Tp * kLdx + (size_t)3 * l.Tp);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// v = hi + lo to about 21 significant bits. hi is v rounded to TF32 to
+// nearest, ties away (what cvt.rna.tf32.f32 gives for finite v), by an
+// integer add and mask; lo = v - hi is exact, and the tensor core reads its
+// top 19 bits. Two integer operations and a subtraction: cvt.rna on both
+// took the kernel from 0.455 to 0.65 ms at the prefill shape, with the same
+// errors against the plain version.
+__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(v - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d[j] += a b[j] over NT tiles in 3xTF32: the two cross terms, then hi hi,
+// each over all tiles before the next, so no mma waits on the one before
+template <int NT>
+__device__ __forceinline__ void mma_3xtf32(float (&d)[NT][4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], const uint32_t (&bh)[NT][2],
+                                           const uint32_t (&bl)[NT][2]) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j) mma_tf32(d[j], al, bh[j][0], bh[j][1]);
+#pragma unroll
+  for (int j = 0; j < NT; ++j) mma_tf32(d[j], ah, bl[j][0], bl[j][1]);
+#pragma unroll
+  for (int j = 0; j < NT; ++j) mma_tf32(d[j], ah, bh[j][0], bh[j][1]);
+}
+
+// the A fragment (rows g, g + 8; k slots t, t + 4) from four f32 values
+__device__ __forceinline__ void split_a(float v0, float v1, float v2, float v3,
+                                        uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  split(v0, hi[0], lo[0]);
+  split(v1, hi[1], lo[1]);
+  split(v2, hi[2], lo[2]);
+  split(v3, hi[3], lo[3]);
+}
+
+__device__ __forceinline__ void split_b(float v0, float v1, uint32_t (&hi)[2],
+                                        uint32_t (&lo)[2]) {
+  split(v0, hi[0], lo[0]);
+  split(v1, hi[1], lo[1]);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+// global -> shared without a register round trip, asynchronously: 16 bytes
+// (both addresses 16-byte aligned) or 4
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// n floats of one row, by warp lane: 16-byte copies when `vec`
+__device__ __forceinline__ void copy_row(float* dst, const float* src, int n, bool vec,
+                                         int lane) {
+  if (vec) {
+    for (int k = 4 * lane; k < n; k += 128) cp_async16(dst + k, src + k);
+  } else {
+    for (int k = lane; k < n; k += 32) cp_async4(dst + k, src + k);
+  }
+}
+
+// zero columns [from, to) of one row, by warp lane
+__device__ __forceinline__ void zero_row(float* dst, int from, int to, int lane) {
+  for (int k = from + lane; k < to; k += 32) dst[k] = 0.f;
+}
+
+// rows r0 and r0 + 8 of a 16 x 64 accumulator tile set, inside (rows, cols)
+__device__ __forceinline__ void store_rows(float* __restrict__ out, size_t row_base, int r0,
+                                           int rows, int cols, int t4,
+                                           const float (&acc)[kQTiles][4]) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + 8 * half;
+    if (r >= rows) continue;
+    float* p = out + (row_base + r) * (size_t)cols;
+#pragma unroll
+    for (int qt = 0; qt < kQTiles; ++qt) {
+      const int q = 8 * qt + 2 * t4;
+      if (q < cols) p[q] = acc[qt][2 * half];
+      if (q + 1 < cols) p[q + 1] = acc[qt][2 * half + 1];
+    }
+  }
+}
+
+// what a warp's products read: the staged chunk and its indices
+struct Chunk {
+  Layout l;
+  const float* bs;    // [Tp][ldbc]  B
+  const float* cs;    // [Tp][ldbc]  C
+  const float* xs;    // [Tp][kLdx]  x
+  const float* acum;  // [Tp]
+  const float* dts;   // [Tp]
+  const float* w;     // [Tp]  exp(a_cum[T-1] - a_cum) * dt
+  size_t id;          // b*h * nc + chunk
+  int T, P, N, g8, t4;
+};
+
+// x's B fragments for all kQTiles column tiles, k slot t4 at row r and slot
+// t4 + 4 at row r + 1 (the permuted k of M x and of the chunk state)
+__device__ __forceinline__ void x_frags(const Chunk& c, int r, uint32_t (&bh)[kQTiles][2],
+                                        uint32_t (&bl)[kQTiles][2]) {
+  const float* x0 = c.xs + r * kLdx + c.g8;
+#pragma unroll
+  for (int qt = 0; qt < kQTiles; ++qt) split_b(x0[8 * qt], x0[kLdx + 8 * qt], bh[qt], bl[qt]);
+}
+
+// rows i0 .. i0 + 15 of y_intra, a warp's work: S = C B^T on its NJT causal
+// column tiles, M = S * exp(a_cum[i] - a_cum[j]) * dt[j] (0 above the
+// diagonal) in the epilogue, then y = M x with M's A fragment taken from the
+// accumulator: it holds columns 2 t4 and 2 t4 + 1 where the A fragment wants
+// t4 and t4 + 4, so M x runs over a permuted k
+template <int NJT>
+__device__ __forceinline__ void y_strip(const Chunk& c, int i0, float* __restrict__ y) {
+  const int ld = c.l.ldbc;
+  float s[NJT][4];
+#pragma unroll
+  for (int jt = 0; jt < NJT; ++jt) s[jt][0] = s[jt][1] = s[jt][2] = s[jt][3] = 0.f;
+  const float* c0 = c.cs + (i0 + c.g8) * ld + c.t4;
+  const float* b0 = c.bs + c.g8 * ld + c.t4;
+  for (int k0 = 0; k0 < c.l.Np; k0 += 8) {
+    uint32_t ah[4], al[4], bh[NJT][2], bl[NJT][2];
+    split_a(c0[k0], c0[8 * ld + k0], c0[k0 + 4], c0[8 * ld + k0 + 4], ah, al);
+#pragma unroll
+    for (int jt = 0; jt < NJT; ++jt) {
+      const float* br = b0 + 8 * jt * ld + k0;
+      split_b(br[0], br[4], bh[jt], bl[jt]);
+    }
+    mma_3xtf32(s, ah, al, bh, bl);
+  }
+  const int i_0 = i0 + c.g8, i_1 = i_0 + 8;
+  const float ac0 = c.acum[i_0], ac1 = c.acum[i_1];
+  float acc[kQTiles][4];
+#pragma unroll
+  for (int qt = 0; qt < kQTiles; ++qt) acc[qt][0] = acc[qt][1] = acc[qt][2] = acc[qt][3] = 0.f;
+#pragma unroll
+  for (int jt = 0; jt < NJT; ++jt) {
+    const int j_0 = 8 * jt + 2 * c.t4, j_1 = j_0 + 1;
+    const float aj0 = c.acum[j_0], aj1 = c.acum[j_1], d0 = c.dts[j_0], d1 = c.dts[j_1];
+    const float m00 = i_0 >= j_0 ? s[jt][0] * expf(ac0 - aj0) * d0 : 0.f;
+    const float m01 = i_0 >= j_1 ? s[jt][1] * expf(ac0 - aj1) * d1 : 0.f;
+    const float m10 = i_1 >= j_0 ? s[jt][2] * expf(ac1 - aj0) * d0 : 0.f;
+    const float m11 = i_1 >= j_1 ? s[jt][3] * expf(ac1 - aj1) * d1 : 0.f;
+    uint32_t ah[4], al[4], bh[kQTiles][2], bl[kQTiles][2];
+    split_a(m00, m10, m01, m11, ah, al);  // slot t4 <-> column j_0, slot t4 + 4 <-> j_1
+    x_frags(c, j_0, bh, bl);
+    mma_3xtf32(acc, ah, al, bh, bl);
+  }
+  store_rows(y, c.id * c.T, i_0, c.T, c.P, c.t4, acc);
+}
+
+// state rows k0 .. k0 + 15, all columns: states[k, q] = sum_t B[t, k] w[t]
+// x[t, q], with t permuted as in y_strip so that B's transpose is read
+// without bank conflicts
+__device__ __forceinline__ void state_rows(const Chunk& c, int k0, float* __restrict__ states) {
+  const int ld = c.l.ldbc;
+  float acc[kQTiles][4];
+#pragma unroll
+  for (int qt = 0; qt < kQTiles; ++qt) acc[qt][0] = acc[qt][1] = acc[qt][2] = acc[qt][3] = 0.f;
+  const float* b0 = c.bs + 2 * c.t4 * ld + k0 + c.g8;
+  for (int t0 = 0; t0 < c.l.Tp; t0 += 8) {
+    const int ta = t0 + 2 * c.t4;  // slot t4 <-> step ta, slot t4 + 4 <-> ta + 1
+    const float wa = c.w[ta], wb = c.w[ta + 1];
+    const float* ba = b0 + t0 * ld;
+    uint32_t ah[4], al[4], bh[kQTiles][2], bl[kQTiles][2];
+    split_a(ba[0] * wa, ba[8] * wa, ba[ld] * wb, ba[ld + 8] * wb, ah, al);
+    x_frags(c, ta, bh, bl);
+    mma_3xtf32(acc, ah, al, bh, bl);
+  }
+  store_rows(states, c.id * c.N, k0 + c.g8, c.N, c.P, c.t4, acc);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
     ssd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dt,
                      const float* __restrict__ a, const float* __restrict__ B,
                      const float* __restrict__ C, float* __restrict__ y,
                      float* __restrict__ states, float* __restrict__ c_decay,
                      float* __restrict__ chunk_decay, int H, int G, int nc, int T, int P,
-                     int N) {
+                     int N, bool vec) {
   extern __shared__ float4 smem4[];
+  __shared__ int next_item;
   float* smem = reinterpret_cast<float*>(smem4);
-  const int Tp = round4(T), n4 = round4(N), p4 = round4(P), ld = Tp + 4;
-  float* bt = smem;                  // [n4][ld]  B transposed
-  float* ct = bt + (size_t)n4 * ld;  // [n4][ld]  C transposed
-  float* xs = ct + (size_t)n4 * ld;  // [Tp][p4]
-  float* mt = xs + (size_t)Tp * p4;  // [Tp][kRowTile]  one row tile of M, transposed
-  float* acum = mt + (size_t)Tp * kRowTile;
-  float* dts = acum + Tp;
-  float* w = dts + Tp;  // exp(a_cum[T-1] - a_cum) * dt
+  const Layout l = make_layout(T, N);
+  float* bs = smem;                          // [Tp][ldbc]  B rows of this chunk and group
+  float* cs = bs + (size_t)l.Tp * l.ldbc;    // [Tp][ldbc]  C
+  float* xs = cs + (size_t)l.Tp * l.ldbc;    // [Tp][kLdx]  x
+  float* acum = xs + (size_t)l.Tp * kLdx;    // [Tp]
+  float* dts = acum + l.Tp;                  // [Tp]
+  float* w = dts + l.Tp;                     // [Tp]  exp(a_cum[T-1] - a_cum) * dt
 
-  const int c = blockIdx.x;
-  const int bh = blockIdx.y;
-  const int bi = bh / H;
-  const int gi = (bh - bi * H) / (H / G);
+  // block -> (b, chunk, head), heads fastest
+  const int head = blockIdx.x % H;
+  const int bc = blockIdx.x / H;
+  const int c = bc % nc;
+  const int bi = bc / nc;
+  const int gi = head / (H / G);
+  const size_t chunk_id = ((size_t)bi * H + head) * nc + c;  // (b*h, chunk)
   const int tid = threadIdx.x;
-  const size_t chunk_id = (size_t)bh * nc + c;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g8 = lane >> 2;  // the fragment's row (and B's column) group
+  const int t4 = lane & 3;   // its k slot
 
-  for (int t = tid; t < Tp; t += kThreads) {
+  // B, C rows t of this chunk and group ((b, nc*T, G, N) row-major) and x,
+  // in flight while a_cum is scanned; padding rows and columns zeroed
+  const size_t row_stride = (size_t)G * N;
+  const size_t bc_base = ((size_t)bi * nc * T + (size_t)c * T) * row_stride + (size_t)gi * N;
+  for (int t = warp; t < l.Tp; t += kWarps) {
+    float* brow = bs + t * l.ldbc;
+    float* crow = cs + t * l.ldbc;
+    float* xrow = xs + t * kLdx;
+    if (t < T) {
+      copy_row(brow, B + bc_base + t * row_stride, N, vec, lane);
+      copy_row(crow, C + bc_base + t * row_stride, N, vec, lane);
+      copy_row(xrow, x + (chunk_id * T + t) * P, P, vec, lane);
+    }
+    const int k_from = t < T ? N : 0, q_from = t < T ? P : 0;
+    zero_row(brow, k_from, l.Np, lane);
+    zero_row(crow, k_from, l.Np, lane);
+    zero_row(xrow, q_from, kMaxP, lane);
+  }
+  if (tid == 0) next_item = 0;
+  for (int t = tid; t < l.Tp; t += kThreads) {
     dts[t] = t < T ? dt[chunk_id * T + t] : 0.f;
     acum[t] = t < T ? a[chunk_id * T + t] : 0.f;
   }
   __syncthreads();
-  for (int off = 1; off < Tp; off <<= 1) {
+  for (int off = 1; off < l.Tp; off <<= 1) {  // inclusive scan; padded steps add 0
     float v = 0.f;
-    if (tid < Tp && tid >= off) v = acum[tid - off];
+    if (tid < l.Tp && tid >= off) v = acum[tid - off];
     __syncthreads();
-    if (tid < Tp) acum[tid] += v;
+    if (tid < l.Tp) acum[tid] += v;
     __syncthreads();
   }
   const float a_last = acum[T - 1];
-  for (int t = tid; t < Tp; t += kThreads) w[t] = t < T ? expf(a_last - acum[t]) * dts[t] : 0.f;
+  for (int t = tid; t < l.Tp; t += kThreads) w[t] = t < T ? expf(a_last - acum[t]) * dts[t] : 0.f;
   if (tid == 0) chunk_decay[chunk_id] = expf(a_last);
-
-  // B, C rows t of this chunk and group: (b, nc*T, G, N) row-major
-  const size_t row_stride = (size_t)G * N;
-  const size_t bc_base = ((size_t)bi * nc * T + (size_t)c * T) * row_stride + (size_t)gi * N;
-  for (int idx = tid; idx < Tp * n4; idx += kThreads) {
-    const int t = idx / n4;
-    const int k = idx - t * n4;
-    float bv = 0.f, cv = 0.f;
-    if (t < T && k < N) {
-      bv = B[bc_base + t * row_stride + k];
-      cv = C[bc_base + t * row_stride + k];
-      c_decay[(chunk_id * T + t) * N + k] = cv * expf(acum[t]);
-    }
-    bt[k * ld + t] = bv;
-    ct[k * ld + t] = cv;
-  }
-  for (int idx = tid; idx < Tp * p4; idx += kThreads) {
-    const int t = idx / p4;
-    const int q = idx - t * p4;
-    xs[idx] = (t < T && q < P) ? x[(chunk_id * T + t) * P + q] : 0.f;
-  }
+  cp_async_wait_all();
   __syncthreads();
-
-  // y_intra, one tile of kRowTile rows at a time
-  const int mq = p4 / 4;
-  for (int i0 = 0; i0 < Tp; i0 += kRowTile) {
-    const int rows = min(kRowTile, Tp - i0);
-    const int mi = rows / 4;
-    const int jmax = i0 + rows;  // causal: row i needs j <= i only
-    const int mj = jmax / 4;
-    for (int u = tid; u < mi * mj; u += kThreads) {
-      const int ui = u % mi;
-      const int uj = u / mi;
-      const int ib = i0 + 4 * ui;
-      const int jb = 4 * uj;
-      float cb[4][4] = {};
-      for (int k = 0; k < n4; ++k)
-        fma4x4(cb, *reinterpret_cast<const float4*>(ct + k * ld + ib),
-               *reinterpret_cast<const float4*>(bt + k * ld + jb));
-#pragma unroll
-      for (int cc = 0; cc < 4; ++cc) {
-        const int j = jb + cc;
-        float mv[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int i = ib + r;
-          mv[r] = i >= j ? cb[r][cc] * expf(acum[i] - acum[j]) * dts[j] : 0.f;
-        }
-        *reinterpret_cast<float4*>(mt + j * kRowTile + 4 * ui) =
-            make_float4(mv[0], mv[1], mv[2], mv[3]);
-      }
-    }
-    __syncthreads();
-    for (int u = tid; u < mi * mq; u += kThreads) {
-      const int uq = u % mq;
-      const int ui = u / mq;
-      const int qb = 4 * uq;
-      float acc[4][4] = {};
-      for (int j = 0; j < jmax; ++j)
-        fma4x4(acc, *reinterpret_cast<const float4*>(mt + j * kRowTile + 4 * ui),
-               *reinterpret_cast<const float4*>(xs + j * p4 + qb));
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int i = i0 + 4 * ui + r;
-        if (i >= T) continue;
-#pragma unroll
-        for (int cc = 0; cc < 4; ++cc)
-          if (qb + cc < P) y[(chunk_id * T + i) * P + qb + cc] = acc[r][cc];
-      }
-    }
-    __syncthreads();  // mt is rewritten by the next row tile
+  for (int t = warp; t < T; t += kWarps) {
+    const float decay_in = expf(acum[t]);
+    float* out = c_decay + (chunk_id * T + t) * N;
+    for (int k = lane; k < N; k += 32) out[k] = cs[t * l.ldbc + k] * decay_in;
   }
 
-  // chunk state: states[k, q] = sum_t B[t, k] w[t] x[t, q]
-  for (int u = tid; u < (n4 / 4) * mq; u += kThreads) {
-    const int uq = u % mq;
-    const int kb = 4 * (u / mq);
-    const int qb = 4 * uq;
-    float acc[4][4] = {};
-    for (int t = 0; t < Tp; ++t) {
-      const float wt = w[t];
-      const float4 bw = make_float4(bt[kb * ld + t] * wt, bt[(kb + 1) * ld + t] * wt,
-                                    bt[(kb + 2) * ld + t] * wt, bt[(kb + 3) * ld + t] * wt);
-      fma4x4(acc, bw, *reinterpret_cast<const float4*>(xs + t * p4 + qb));
+  // y_intra: a warp a 16-row strip of the causal triangle; warps w and w + 4
+  // share a scheduler, so they take strips w and 7 - w (equal work)
+  const Chunk ch{l, bs, cs, xs, acum, dts, w, chunk_id, T, P, N, g8, t4};
+  const int strip = warp < 4 ? warp : 11 - warp;
+  if (strip < l.Tp / 16) {
+    switch (strip) {
+      case 0: y_strip<2>(ch, 0, y); break;
+      case 1: y_strip<4>(ch, 16, y); break;
+      case 2: y_strip<6>(ch, 32, y); break;
+      case 3: y_strip<8>(ch, 48, y); break;
+      case 4: y_strip<10>(ch, 64, y); break;
+      case 5: y_strip<12>(ch, 80, y); break;
+      case 6: y_strip<14>(ch, 96, y); break;
+      default: y_strip<16>(ch, 112, y); break;
     }
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int k = kb + r;
-      if (k >= N) continue;
-#pragma unroll
-      for (int cc = 0; cc < 4; ++cc)
-        if (qb + cc < P) states[(chunk_id * N + k) * P + qb + cc] = acc[r][cc];
-    }
+  }
+  // the chunk state, 16 rows at a time, to whichever warp is free
+  for (;;) {
+    int item = 0;
+    if (lane == 0) item = atomicAdd(&next_item, 1);
+    item = __shfl_sync(0xffffffffu, item, 0);
+    if (item >= l.Np / 16) break;
+    state_rows(ch, 16 * item, states);
   }
 }
 
@@ -213,24 +395,28 @@ extern "C" int ssd_chunks_launch(const void* x, const void* dt, const void* a, c
                                  int N, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (b < 1 || g < 1 || h % g != 0 || nc < 1 || T < 1 || T > kMaxT || N < 1 || N > kMaxN ||
-      P < 1 || P > kMaxP || b * h > 65535)
+  if (b < 1 || h < 1 || g < 1 || h % g != 0 || nc < 1 || T < 1 || T > kMaxT || N < 1 ||
+      N > kMaxN || P < 1 || P > kMaxP)
     return (int)cudaErrorInvalidValue;
-  const size_t bytes = smem_floats(T, N, P) * sizeof(float);
+  const long long blocks = (long long)b * h * nc;
+  if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
+  const size_t bytes = smem_bytes(make_layout(T, N));
   if (bytes > (size_t)kMaxSmemBytes) return (int)cudaErrorInvalidValue;
   // once per device, so that a launch captured in a CUDA graph makes no
   // other runtime call than the launch itself
-  static bool smem_opt_in[64] = {};
-  if (device < 0 || device >= 64) return (int)cudaErrorInvalidDevice;
+  static bool smem_opt_in[kMaxDevices] = {};
+  if (device < 0 || device >= kMaxDevices) return (int)cudaErrorInvalidDevice;
   if (!smem_opt_in[device]) {
     err = cudaFuncSetAttribute(ssd_chunk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                kMaxSmemBytes);
     if (err != cudaSuccess) return (int)err;
     smem_opt_in[device] = true;
   }
-  dim3 grid(nc, b * h);
-  ssd_chunk_kernel<<<grid, kThreads, bytes, (cudaStream_t)stream>>>(
+  // 16-byte copies where every row of B, C and x starts 16-byte aligned
+  const bool vec = N % 4 == 0 && P % 4 == 0 &&
+                   ((uintptr_t)x | (uintptr_t)B | (uintptr_t)C) % 16 == 0;
+  ssd_chunk_kernel<<<(unsigned)blocks, kThreads, bytes, (cudaStream_t)stream>>>(
       (const float*)x, (const float*)dt, (const float*)a, (const float*)B, (const float*)C,
-      (float*)y, (float*)states, (float*)c_decay, (float*)chunk_decay, h, g, nc, T, P, N);
+      (float*)y, (float*)states, (float*)c_decay, (float*)chunk_decay, h, g, nc, T, P, N, vec);
   return (int)cudaGetLastError();
 }

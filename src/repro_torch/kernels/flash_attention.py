@@ -11,7 +11,8 @@ the probabilities from. The plain version is ``ref.flash_attention_ref``;
 
 ``launch_plan`` says which of the kernel's paths a call takes, with its
 tiles, key splits and scratch; it is a pure function of the shapes, so the
-host tests check it.
+host tests check it. Head dims 96 and 112 are zero-padded to 128, and a
+batch with b*h above 65,535 runs as several launches of whole batch rows.
 """
 
 from __future__ import annotations
@@ -26,8 +27,13 @@ import torch
 from repro_torch.kernels import _build
 
 HEAD_DIMS = (16, 32, 64, 128)  # csrc/flash_attention.cu: flash_attention_launch
+# head dims the wrapper zero-pads to a kernel instance: zero columns add
+# nothing to q k^T, give zero output columns, and are cut off again
+PADDED_HEAD_DIMS = {96: 128, 112: 128}
 DTYPES = (torch.float32, torch.bfloat16)
-MAX_BATCH_HEADS = 65535  # the f32 kernels' grid y extent
+# b*h of one launch (the f32 kernels' grid y, the decode grid's z holds
+# b*hk): the wrapper cuts a larger batch into launches of at most this
+MAX_LAUNCH_BATCH_HEADS = 65535
 DECODE_BELOW_SQ = 16  # kDecodeBelowSq
 MMA_TILE_Q, MMA_TILE_K = 64, 64  # the bf16 tile kernel: one warpgroup's rows, keys a tile
 DECODE_TILE_K = 64  # kDecTileK
@@ -115,10 +121,19 @@ def flash_attention_cuda(
         )
     if hk < 1 or h % hk:
         raise ValueError(f"flash_attention: {h} query heads over {hk} kv heads")
+    kw = dict(causal=causal, window=window, q_offset=q_offset, kv_len=kv_len)
+    if d in PADDED_HEAD_DIMS:
+        scale = 1.0 / (d**0.5) if scale is None else float(scale)
+        width = PADDED_HEAD_DIMS[d] - d
+        padded = [torch.nn.functional.pad(t, (0, width)) for t in (q, k, v)]
+        res = flash_attention_cuda(*padded, scale=scale, return_lse=return_lse, **kw)
+        out = (res[0] if return_lse else res)[..., :d].contiguous()
+        return (out, res[1]) if return_lse else out
     if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {d} not in {HEAD_DIMS}")
-    if b * h > MAX_BATCH_HEADS:
-        raise ValueError(f"flash_attention: b*h = {b * h} > {MAX_BATCH_HEADS}")
+        raise ValueError(
+            f"flash_attention: head dim {d} not in {HEAD_DIMS} or {tuple(PADDED_HEAD_DIMS)}")
+    if h > MAX_LAUNCH_BATCH_HEADS:
+        raise ValueError(f"flash_attention: {h} heads > {MAX_LAUNCH_BATCH_HEADS}")
     kv_len = skv if kv_len is None else int(kv_len)
     if not 0 <= kv_len <= skv:
         raise ValueError(f"flash_attention: kv_len {kv_len} outside 0..{skv}")
@@ -133,6 +148,19 @@ def flash_attention_cuda(
         return (out, lse.fill_(float("-inf"))) if return_lse else out
     scale = 1.0 / (d**0.5) if scale is None else float(scale)
     dev = q.device.index if q.device.index is not None else torch.cuda.current_device()
+    rows = MAX_LAUNCH_BATCH_HEADS // h  # batch rows a launch
+    for b0 in range(0, b, rows):
+        part = slice(b0, min(b, b0 + rows))
+        _launch(q[part], k[part], v[part], out[part], None if lse is None else lse[part],
+                scale=scale, causal=causal, window=window, kv_len=kv_len,
+                q_offset=q_offset, dev=dev)
+    return (out, lse) if return_lse else out
+
+
+def _launch(q, k, v, out, lse, *, scale, causal, window, kv_len, q_offset, dev) -> None:
+    """One launch over whole batch rows: contiguous slices of dim 0."""
+    b, h, sq, d = q.shape
+    _, hk, skv, _ = k.shape
     plan = launch_plan(b, h, hk, sq, skv, d, q.dtype, kv_len, _sm_count(dev))
     scratch = (torch.empty(plan.scratch_shape, dtype=torch.float32, device=q.device)
                if plan.scratch_shape else None)
@@ -146,4 +174,3 @@ def flash_attention_cuda(
         0 if window is None else int(window), kv_len, int(q_offset), plan.splits,
         dev, torch.cuda.current_stream(dev).cuda_stream,
     )
-    return (out, lse) if return_lse else out

@@ -155,12 +155,13 @@ def ssd_chunks(x, dt, a, B, C, *, heads: int, impl: Optional[str] = None):
     return ssd_chunks_cuda(x, dt, a, B, C, heads=heads)
 
 
-def ssd_scan_chunked(x, dt, A, B, C, *, chunk: int, return_state: bool = False):
+def ssd_scan_chunked(x, dt, A, B, C, *, chunk: int, h0=None, return_state: bool = False):
     """Chunked SSD around ``ssd_chunks``, as the reference's
     ``_ssd_pallas_impl``: pad s to a multiple of ``chunk``, lay x and dt out
     per (b·h, chunk) with A tiled over the batch, run the chunk block, then
-    the inter-chunk recurrence and the state-output product as torch ops.
-    B and C stay (b, s, g, n): the chunk block reads them per group."""
+    the inter-chunk recurrence (from ``h0`` (b, h, n, p), zeros when None)
+    and the state-output product as torch ops. B and C stay (b, s, g, n):
+    the chunk block reads them per group."""
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     pad = (-s) % chunk
@@ -175,7 +176,8 @@ def ssd_scan_chunked(x, dt, A, B, C, *, chunk: int, return_state: bool = False):
     a = (dtc * A.float().repeat(b)[:, None, None]).contiguous()
     y_intra, states, c_decay, chunk_decay = ssd_chunks(
         xc, dtc, a, B.float().contiguous(), C.float().contiguous(), heads=h)
-    hprev = torch.zeros((b * h, n, p), dtype=torch.float32, device=x.device)
+    hprev = (torch.zeros((b * h, n, p), dtype=torch.float32, device=x.device)
+             if h0 is None else h0.reshape(b * h, n, p).float())
     h_prevs = []
     for c in range(nc):  # sequential over chunks, tiny
         h_prevs.append(hprev)
@@ -187,40 +189,47 @@ def ssd_scan_chunked(x, dt, A, B, C, *, chunk: int, return_state: bool = False):
     return y
 
 
-def ssd_scan(x, dt, A, B, C, *, chunk: int = 128, return_state: bool = False,
+def ssd_scan(x, dt, A, B, C, *, chunk: int = 128, h0=None, return_state: bool = False,
              impl: Optional[str] = None):
     """Chunked Mamba2 SSD: x (b, s, h, p), dt (b, s, h), A (h,), B/C
-    (b, s, g, n) -> y (b, s, h, p) [, final state (b, h, n, p) f32].
+    (b, s, g, n), initial state ``h0`` (b, h, n, p) or None (zeros) -> y
+    (b, s, h, p) [, final state (b, h, n, p) f32].
 
     A CPU tensor or ``impl="ref"`` takes the plain ``ref.ssd_scan_ref``
     (where the reference routes its jnp oracle); a CUDA tensor takes
-    ``ssd_scan_chunked`` around the Hopper chunk kernel.
+    ``ssd_scan_chunked`` around the Hopper chunk kernel, with or without
+    ``h0``.
     """
-    return _SSDScan.apply(x, dt, A, B, C, chunk, return_state, impl)
+    return _SSDScan.apply(x, dt, A, B, C, h0, chunk, return_state, impl)
 
 
 class _SSDScan(torch.autograd.Function):
     """Forward: the chunk kernel's scan or the plain version; saved: the
-    inputs; backward: the VJP of the plain ``ssd_scan_ref``, recomputed."""
+    inputs (``h0`` too); backward: the VJP of the plain ``ssd_scan_ref``,
+    recomputed."""
 
     @staticmethod
-    def forward(ctx, x, dt, A, B, C, chunk, return_state, impl):
+    def forward(ctx, x, dt, A, B, C, h0, chunk, return_state, impl):
         ctx.chunk, ctx.return_state = chunk, return_state
-        ctx.save_for_backward(x, dt, A, B, C)
+        ctx.save_for_backward(x, dt, A, B, C, h0)
+        kw = dict(chunk=chunk, h0=h0, return_state=return_state)
         if not use_kernel(x, impl):
-            return ref.ssd_scan_ref(x, dt, A, B, C, chunk=chunk, return_state=return_state)
-        return ssd_scan_chunked(x, dt, A, B, C, chunk=chunk, return_state=return_state)
+            return ref.ssd_scan_ref(x, dt, A, B, C, **kw)
+        return ssd_scan_chunked(x, dt, A, B, C, **kw)
 
     @staticmethod
     def backward(ctx, *grads):
-        inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+        inputs = [None if t is None else t.detach().requires_grad_(True)
+                  for t in ctx.saved_tensors]
         with torch.enable_grad():
-            out = ref.ssd_scan_ref(*inputs, chunk=ctx.chunk, return_state=ctx.return_state)
+            out = ref.ssd_scan_ref(*inputs[:5], chunk=ctx.chunk, h0=inputs[5],
+                                   return_state=ctx.return_state)
         outs = out if ctx.return_state else (out,)
         pairs = [(o, g) for o, g in zip(outs, grads) if g is not None]
-        d = torch.autograd.grad([o for o, _ in pairs], inputs, [g for _, g in pairs],
-                                allow_unused=True)
-        return (*d, None, None, None)
+        wrt = [t for t in inputs if t is not None]
+        d = iter(torch.autograd.grad([o for o, _ in pairs], wrt, [g for _, g in pairs],
+                                     allow_unused=True))
+        return (*(None if t is None else next(d) for t in inputs), None, None, None)
 
 
 ssm_decode_step = ref.ssm_decode_step  # the recurrent step is plain torch, as in the reference

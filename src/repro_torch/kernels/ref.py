@@ -376,13 +376,14 @@ def ssd_scan_ref(
     C: torch.Tensor,  # (b, s, g, n)
     *,
     chunk: int = 128,
+    h0: Optional[torch.Tensor] = None,  # (b, h, n, p) initial state
     return_state: bool = False,
 ):
     """Chunked Mamba2 SSD (arXiv:2405.21060), the reference's ``ssd_scan_ref``.
 
-    Recurrence h_t = exp(A dt_t) h_{t-1} + dt_t B_t x_t^T, y_t = C_t h_t.
-    Returns y (b, s, h, p) in x's dtype [and the final state (b, h, n, p)
-    f32].
+    Recurrence h_t = exp(A dt_t) h_{t-1} + dt_t B_t x_t^T, y_t = C_t h_t,
+    from h_0 = ``h0`` (zeros when None). Returns y (b, s, h, p) in x's
+    dtype [and the final state (b, h, n, p) f32].
     """
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
@@ -413,7 +414,8 @@ def ssd_scan_ref(
     states = torch.einsum("bcthn,bcth,bcth,bcthp->bchnp", Bh, decay_end, dtc, xc)
     chunk_decay = torch.exp(a_cum[:, :, -1, :])  # (b, nc, h)
 
-    hprev = torch.zeros((b, h, n, p), dtype=torch.float32, device=x.device)
+    hprev = (torch.zeros((b, h, n, p), dtype=torch.float32, device=x.device)
+             if h0 is None else h0.float())
     h_prevs = []
     for c in range(nc):
         h_prevs.append(hprev)

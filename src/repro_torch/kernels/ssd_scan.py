@@ -13,7 +13,7 @@ import torch
 from repro_torch.kernels import _build
 
 MAX_T, MAX_N, MAX_P = 128, 128, 64  # csrc/ssd_scan.cu: kMaxT, kMaxN, kMaxP
-MAX_BATCH_HEADS = 65535  # the grid's y extent
+MAX_BLOCKS = 2**31 - 1  # one block per (b*h, chunk) on the grid's x extent
 
 
 def _check(name: str, a: torch.Tensor, shape) -> None:
@@ -50,8 +50,8 @@ def ssd_chunks_cuda(x, dt, a, B, C, *, heads: int):
         raise ValueError(
             f"ssd_chunks: chunk {T}, state {n}, head dim {p} outside "
             f"{MAX_T}, {MAX_N}, {MAX_P}")
-    if bh > MAX_BATCH_HEADS:
-        raise ValueError(f"ssd_chunks: b*h = {bh} > {MAX_BATCH_HEADS}")
+    if bh * nc > MAX_BLOCKS:
+        raise ValueError(f"ssd_chunks: b*h*nc = {bh * nc} > {MAX_BLOCKS}")
     dev = x.device
     y = torch.empty((bh, nc, T, p), dtype=torch.float32, device=dev)
     states = torch.empty((bh, nc, n, p), dtype=torch.float32, device=dev)

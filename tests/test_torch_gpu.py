@@ -201,6 +201,65 @@ def test_flash_attention_kernel_rejects_what_it_does_not_take(cuda):
         ops.flash_attention(q, q, q, kv_len=5)
 
 
+def _flash_against_plain(q, k, v, launches, **kw):
+    """The kernel's output and lse against the plain version's, at the
+    tolerances of test_flash_attention_kernel_matches_plain; ``launches``
+    is the launches the call must make."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    before = ops.LAUNCHES["flash_attention"]
+    got, lse = flash_attention_cuda(q, k, v, scale=None, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] - before == launches
+    want, lse_want = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
+    assert got.dtype == q.dtype and got.shape == want.shape and got.is_contiguous()
+    if q.dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -7, atol=1e-4)
+    masked = torch.isneginf(lse_want)
+    assert torch.equal(torch.isneginf(lse), masked)
+    torch.testing.assert_close(lse[~masked], lse_want[~masked], rtol=1e-5, atol=1e-4)
+
+
+# (sq, skv, q_offset, kv_len, causal, dtype): bf16 prefill (the wgmma tiles),
+# bf16 decode (packed mma.sync rows, key splits), f32 (the FMA kernels)
+FLASH_PATHS = {
+    "bf16_prefill": (70, 70, 0, None, True, torch.bfloat16),
+    "bf16_decode": (1, 90, 80, 81, False, torch.bfloat16),
+    "f32": (20, 40, 20, None, True, torch.float32),
+}
+
+
+@pytest.mark.parametrize("path", sorted(FLASH_PATHS))
+@pytest.mark.parametrize("d", [96, 112])
+def test_flash_attention_kernel_pads_head_dims_96_and_112(cuda, d, path):
+    """Zero-padded to 128 in the wrapper, with the scale of the true d."""
+    sq, skv, q_offset, kv_len, causal, dt = FLASH_PATHS[path]
+    rng = np.random.default_rng(d + sq)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda, dt)
+               for s in ((2, 6, sq, d), (2, 2, skv, d), (2, 2, skv, d)))
+    _flash_against_plain(q, k, v, 1, causal=causal, window=None, q_offset=q_offset,
+                         kv_len=kv_len)
+
+
+@pytest.mark.parametrize("path", sorted(FLASH_PATHS))
+def test_flash_attention_kernel_takes_65536_batch_heads(cuda, path):
+    """b*h = 65,536 at tiny widths: two launches of whole batch rows, each
+    under the f32 grid's y and the decode grid's z."""
+    sq, skv, q_offset, kv_len, causal, dt = FLASH_PATHS[path]
+    sq, skv = min(sq, 16), min(skv, 24)
+    q_offset = 0 if sq > 1 else skv - 1
+    kv_len = None if sq > 1 else skv
+    b, h, hk, d = 16384, 4, 2, 16
+    gen = torch.Generator(cuda).manual_seed(7)
+    q, k, v = (torch.randn(s, generator=gen, device=cuda).to(dt)
+               for s in ((b, h, sq, d), (b, hk, skv, d), (b, hk, skv, d)))
+    _flash_against_plain(q, k, v, 2, causal=causal, window=None, q_offset=q_offset,
+                         kv_len=kv_len)
+
+
 def _ssd_inputs(rng, b, s, h, p, g, n, device):
     def t(a):
         return torch.from_numpy(a.astype(np.float32)).to(device)
@@ -212,7 +271,8 @@ def _ssd_inputs(rng, b, s, h, p, g, n, device):
 
 # (b, h, g, nc, T, p, n)
 SSD_CASES = [(2, 4, 1, 3, 16, 8, 16), (2, 4, 2, 2, 32, 8, 16), (1, 4, 1, 1, 40, 32, 16),
-             (1, 4, 2, 2, 67, 6, 10), (2, 24, 1, 2, 128, 64, 128)]
+             (1, 4, 2, 2, 67, 6, 10), (2, 24, 1, 2, 128, 64, 128),
+             (1, 24, 2, 2, 128, 64, 128)]  # full width, two groups
 
 
 @pytest.mark.parametrize("case", SSD_CASES)
@@ -236,6 +296,46 @@ def test_ssd_chunks_kernel_matches_plain(cuda, case):
         # as a scan: 1e-4 of the output's scale
         scale = float(wt.abs().max())
         torch.testing.assert_close(gt, wt, rtol=1e-4, atol=1e-4 * scale)
+
+
+def test_ssd_chunks_kernel_takes_65536_batch_heads(cuda):
+    """b*h = 65,536 at tiny widths, one launch (a 1-D grid of b*h*nc
+    blocks)."""
+    from repro_torch.kernels import ops
+
+    b, h, g, T, p, n = 16384, 4, 2, 16, 8, 16
+    rng = np.random.default_rng(65536)
+    x, dt, A, B, C = _ssd_inputs(rng, b, T, h, p, g, n, cuda)
+    xc = x.movedim(2, 1).reshape(b * h, 1, T, p).contiguous()
+    dtc = dt.movedim(2, 1).reshape(b * h, 1, T).contiguous()
+    a = (dtc * A.repeat(b)[:, None, None]).contiguous()
+    before = ops.LAUNCHES["ssd_chunks"]
+    got = ops.ssd_chunks(xc, dtc, a, B, C, heads=h)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ssd_chunks"] == before + 1
+    want = ops.ssd_chunks(xc, dtc, a, B, C, heads=h, impl="ref")
+    for gt, wt in zip(got, want):
+        scale = float(wt.abs().max())
+        torch.testing.assert_close(gt, wt, rtol=1e-4, atol=1e-4 * scale)
+
+
+@pytest.mark.parametrize("s,chunk,g", [(100, 32, 1), (64, 16, 2)])
+def test_ssd_scan_on_the_card_takes_h0(cuda, s, chunk, g):
+    """The kernel path from an initial state against the plain path."""
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(s + chunk + 1)
+    x, dt, A, B, C = _ssd_inputs(rng, 2, s, 4, 8, g, 16, cuda)
+    h0 = torch.from_numpy(rng.normal(size=(2, 4, 16, 8)).astype(np.float32)).to(cuda)
+    before = ops.LAUNCHES["ssd_chunks"]
+    y, hs = ops.ssd_scan(x, dt, A, B, C, chunk=chunk, h0=h0, return_state=True)
+    assert ops.LAUNCHES["ssd_chunks"] == before + 1
+    y_ref, hs_ref = ops.ssd_scan(x, dt, A, B, C, chunk=chunk, h0=h0, return_state=True,
+                                 impl="ref")
+    y0 = ops.ssd_scan(x, dt, A, B, C, chunk=chunk)
+    assert not torch.allclose(y, y0)  # the state reached the output
+    torch.testing.assert_close(y, y_ref, rtol=1e-4, atol=1e-4 * float(y_ref.abs().max()))
+    torch.testing.assert_close(hs, hs_ref, rtol=1e-4, atol=1e-4 * float(hs_ref.abs().max()))
 
 
 @pytest.mark.parametrize("s,chunk,g", [(100, 32, 1), (64, 16, 2), (40, 40, 1)])
