@@ -531,6 +531,7 @@ def _check_ssd(torch, np, rng, kind):
 def _ssd_case(torch, np, rng, kind, b, nc):
     """One ssd_chunks shape: kernel vs plain, timed beside its bound."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels.ssd_scan import _sm_count, head_slice
 
     dev = torch.device(DEVICE)
     h, g, T, p, n = 24, 1, 128, 64, 128
@@ -559,21 +560,24 @@ def _ssd_case(torch, np, rng, kind, b, nc):
     # the least work: C B^T and M x on the causal triangle of each chunk,
     # and the chunk state, in f32 multiply-adds; each input read once and
     # each output written once. Two bounds: those products on the fp32
-    # cores, and as the kernel runs them, in 3xTF32 on the tensor cores
-    # (three TF32 products for each f32 one)
+    # cores, and as the kernel runs them: in 3xTF32 on the tensor cores
+    # (three TF32 products for each f32 one), C B^T once a head slice
     tri = T * (T + 1) // 2
     n_ops = 2.0 * b * h * nc * (tri * n + tri * p + T * n * p)
     n_bytes = 4.0 * (2 * b * h * nc * T * p + 2 * b * h * nc * T + 2 * b * nc * T * g * n
                      + b * h * nc * (n * p + T * n + 1))
     fp32_bound, fp32_by = _bound_ms(n_bytes, n_ops)
-    bound, by = _bound_ms(n_bytes, 3 * n_ops, TF32_OPS_PER_S)
+    heads = head_slice(b * nc * g, h // g, _sm_count(torch.cuda.current_device()))
+    tc_ops = 3 * 2.0 * b * h * nc * (tri * n / heads + tri * p + T * n * p)
+    bound, by = _bound_ms(n_bytes, tc_ops, TF32_OPS_PER_S)
     ms = _time_ms(torch, lambda: ops.ssd_chunks(x, dt, a, B, C, heads=h), 20)
     eager = _eager_ms(torch, lambda: ops.ssd_chunks(x, dt, a, B, C, heads=h), 20)
     plain_ms = _time_ms(torch, lambda: ops.ssd_chunks(x, dt, a, B, C, heads=h, impl="ref"), 3)
     print(f"[kernel] ssd_chunks bh={b * h} nc={nc} T={T} p={p} n={n}: {ms:.4f} ms (eager "
           f"calls {eager:.4f} ms, plain {plain_ms:.4f} ms; bound {bound * 1e3:.2f} us by {by} "
-          f"in 3xTF32 on the tensor cores ({n_bytes / 1e6:.1f} MB, {3 * n_ops / 1e9:.2f} "
-          f"GFLOP), {ms / bound:.2f} x it; fp32-core bound {fp32_bound * 1e3:.2f} us by "
+          f"in 3xTF32 on the tensor cores, C B^T once for {heads} heads ({n_bytes / 1e6:.1f} "
+          f"MB, {tc_ops / 1e9:.2f} GFLOP), {ms / bound:.2f} x it; fp32-core bound "
+          f"{fp32_bound * 1e3:.2f} us by "
           f"{fp32_by}, {ms / fp32_bound:.2f} x it; max |err| {err:.3g}, tolerance "
           f"{SSD_REL} of each output's scale) on {kind}", flush=True)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, max_abs_err=err,

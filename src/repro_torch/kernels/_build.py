@@ -54,9 +54,9 @@ _SIGNATURES = {
     "flash_attention_launch": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _F,
                                _I, _I, _I, _I, _I, _I, _P],
     # x, dt, a, B, C, y, states, c_decay, chunk_decay, b, h, g, nc, T, p, n,
-    # device, stream
+    # head_slice, device, stream
     "ssd_chunks_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                          _I, _P],
+                          _I, _I, _P],
     # x, q, scales, n, nb, device, stream
     "int8_quantize_launch": [_P, _P, _P, _L, _L, _I, _P],
     # q, scales, out, n, device, stream

@@ -272,7 +272,8 @@ def _ssd_inputs(rng, b, s, h, p, g, n, device):
 # (b, h, g, nc, T, p, n)
 SSD_CASES = [(2, 4, 1, 3, 16, 8, 16), (2, 4, 2, 2, 32, 8, 16), (1, 4, 1, 1, 40, 32, 16),
              (1, 4, 2, 2, 67, 6, 10), (2, 24, 1, 2, 128, 64, 128),
-             (1, 24, 2, 2, 128, 64, 128)]  # full width, two groups
+             (1, 24, 2, 2, 128, 64, 128),  # full width, two groups
+             (2, 6, 1, 2, 48, 16, 32)]  # 6 heads a group
 
 
 @pytest.mark.parametrize("case", SSD_CASES)
@@ -294,6 +295,28 @@ def test_ssd_chunks_kernel_matches_plain(cuda, case):
         assert gt.shape == wt.shape
         # f32 sums of up to T*n terms in another order, and a cumsum taken
         # as a scan: 1e-4 of the output's scale
+        scale = float(wt.abs().max())
+        torch.testing.assert_close(gt, wt, rtol=1e-4, atol=1e-4 * scale)
+
+
+@pytest.mark.parametrize("slice_heads", [1, 4, 6])
+def test_ssd_chunks_kernel_head_slices(cuda, slice_heads):
+    """A block runs a slice of one group's heads, sharing C B^T: slices of
+    1, 4 (6 heads: a slice of 4, then one of 2) and all 6, against the
+    plain version."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ssd_scan import ssd_chunks_cuda
+
+    b, h, g, nc, T, p, n = 2, 12, 2, 2, 40, 24, 32
+    rng = np.random.default_rng(slice_heads)
+    x, dt, A, B, C = _ssd_inputs(rng, b, nc * T, h, p, g, n, cuda)
+    xc = x.movedim(2, 1).reshape(b * h, nc, T, p).contiguous()
+    dtc = dt.movedim(2, 1).reshape(b * h, nc, T).contiguous()
+    a = (dtc * A.repeat(b)[:, None, None]).contiguous()
+    got = ssd_chunks_cuda(xc, dtc, a, B, C, heads=h, slice_heads=slice_heads)
+    torch.cuda.synchronize()
+    want = ops.ssd_chunks(xc, dtc, a, B, C, heads=h, impl="ref")
+    for gt, wt in zip(got, want):
         scale = float(wt.abs().max())
         torch.testing.assert_close(gt, wt, rtol=1e-4, atol=1e-4 * scale)
 

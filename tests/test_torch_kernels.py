@@ -246,6 +246,21 @@ def test_cuda_wrappers_refuse_host_tensors(which):
     assert dict(ops.LAUNCHES) == before
 
 
+def test_ssd_head_slice_fills_the_card_in_the_fewest_waves():
+    from repro_torch.kernels.ssd_scan import MAX_HEAD_SLICE, head_slice
+
+    # mamba2-130m at prefill (b 8 x 8 chunks) and training (b 2 x 32
+    # chunks), one group of 24 heads: 128 blocks of 12 heads, one wave of
+    # the H100's 132 SMs (slices of 4, 6 and 8 measured slower there)
+    assert head_slice(64, 24) == 12
+    assert head_slice(64, 21) == 11  # 11 + 10 heads
+    assert head_slice(4, 6) == 1  # few blocks: a head a block fills more SMs
+    assert head_slice(10**6, 64) == MAX_HEAD_SLICE  # many waves: the largest slice
+    for blocks, heads, sms in [(64, 24, 132), (3, 7, 132), (1000, 48, 114), (64, 1, 132)]:
+        got = head_slice(blocks, heads, sms)
+        assert 1 <= got <= min(heads, MAX_HEAD_SLICE)
+
+
 def test_build_inputs_and_failure_mode(monkeypatch):
     names = [p.name for p in _build.sources()]
     assert names == ["flash_attention.cu", "int8_codec.cu", "plan_grid.cu", "rbf_gram.cu",
