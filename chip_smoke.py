@@ -55,7 +55,10 @@ Phases (every failure raises; nothing is caught):
 9. train mamba2-130m at full width through launch.train.main --compress
    (batch 2 x seq 4,096, 4 steps, checkpoints every 2 under
    build/chip_smoke_ckpt/), then a second main that resumes from step 4
-   and runs to 6.
+   and runs to 6; then one step taken apart as phase 8's (loss and
+   gradients, of it the ssd_chunks launches x the kernel's ms, the SSD
+   scan's forward and the plain SSD VJP at one layer's shape; compression;
+   AdamW).
 10. launches: one JSON line with every kernel's launch count on its main
    path (phases 4-5 for the planning kernels, 6b's kernel arms for the
    serving kernels, phases 8-9's training runs for the codec, each
@@ -548,7 +551,7 @@ def _ssd_case(torch, np, rng, kind, b, nc):
     got = ops.ssd_chunks(x, dt, a, B, C, heads=h)
     want = ops.ssd_chunks(x, dt, a, B, C, heads=h, impl="ref")
     torch.cuda.synchronize()
-    err = 0.0
+    err, worst = 0.0, 0.0  # worst: the largest error as a share of its tolerance
     for name, gt, wt in zip(("y_intra", "states", "c_decay", "chunk_decay"), got, want):
         if gt.shape != wt.shape or not bool(torch.isfinite(gt).all()):
             raise AssertionError(f"ssd_chunks {name}: bad output")
@@ -556,7 +559,7 @@ def _ssd_case(torch, np, rng, kind, b, nc):
         scale = float(wt.abs().max())
         if e > SSD_REL * scale:
             raise AssertionError(f"ssd_chunks {name}: max |err| {e} > {SSD_REL} x {scale}")
-        err = max(err, e)
+        err, worst = max(err, e), max(worst, e / (SSD_REL * scale))
     # the least work: C B^T and M x on the causal triangle of each chunk,
     # and the chunk state, in f32 multiply-adds; each input read once and
     # each output written once. Two bounds: those products on the fp32
@@ -578,8 +581,8 @@ def _ssd_case(torch, np, rng, kind, b, nc):
           f"in 3xTF32 on the tensor cores, C B^T once for {heads} heads ({n_bytes / 1e6:.1f} "
           f"MB, {tc_ops / 1e9:.2f} GFLOP), {ms / bound:.2f} x it; fp32-core bound "
           f"{fp32_bound * 1e3:.2f} us by "
-          f"{fp32_by}, {ms / fp32_bound:.2f} x it; max |err| {err:.3g}, tolerance "
-          f"{SSD_REL} of each output's scale) on {kind}", flush=True)
+          f"{fp32_by}, {ms / fp32_bound:.2f} x it; max |err| {err:.3g}, worst output at "
+          f"{worst:.3g} x its tolerance, {SSD_REL} of its scale) on {kind}", flush=True)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, max_abs_err=err,
                 library_ms=None, fp32_bound_ms=fp32_bound)
 
@@ -1087,13 +1090,10 @@ def phase_train_starcoder(torch, np):
     return launches, dict(step_s=step_s, tokens_per_s=batch * seq / step_s, peak_bytes=peak)
 
 
-def _train_breakdown(torch, arch, cfg, model, params, opt, resid, opt_cfg, b, batch, seq):
-    """One more step taken apart, a synchronise between its stages (the
-    step's own body: loss and gradients, compression, AdamW), then, at one
-    layer's training shape, the attention kernel's forward, its (out, lse)
-    recompute in the backward, and the plain attention backward."""
-    from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
+def _step_apart(torch, arch, cfg, model, params, opt, resid, opt_cfg, b):
+    """One compressed step taken apart, a synchronise between its stages
+    (the step's own body): seconds of loss and gradients, compression and
+    AdamW."""
     from repro_torch.launch import mesh, steps
     from repro_torch.optim import adamw, compress
 
@@ -1102,6 +1102,17 @@ def _train_breakdown(torch, arch, cfg, model, params, opt, resid, opt_cfg, b, ba
     _, t_c = _sync_time(torch, lambda: compress.compressed_grad_tree(grads, resid, group))
     _, t_a = _sync_time(torch, lambda: adamw.update(opt_cfg, params, grads, opt))
     del grads
+    return t_fb, t_c, t_a
+
+
+def _train_breakdown(torch, arch, cfg, model, params, opt, resid, opt_cfg, b, batch, seq):
+    """One more step taken apart (``_step_apart``), then, at one layer's
+    training shape, the attention kernel's forward, its (out, lse) recompute
+    in the backward, and the plain attention backward."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    t_fb, t_c, t_a = _step_apart(torch, arch, cfg, model, params, opt, resid, opt_cfg, b)
     a = cfg.attn
     gen = torch.Generator(DEVICE).manual_seed(SEED)
     q, k, v = (torch.randn(shape, generator=gen, device=DEVICE).to(torch.bfloat16)
@@ -1125,6 +1136,69 @@ def _train_breakdown(torch, arch, cfg, model, params, opt, resid, opt_cfg, b, ba
           f"and recomputation, {n} x {rec_ms:.3f} ms recomputing (out, lse) in the backward; "
           f"the plain attention backward {n} x {t_bwd:.3f} s = {n * t_bwd:.3f} s), "
           f"compression {t_c:.3f} s, AdamW {t_a:.3f} s", flush=True)
+
+
+def phase_train_mamba_apart(torch, ssd_ms: float):
+    """mamba2-130m at full width (batch 2 x seq 4,096, random weights from a
+    seed): one warm compressed step, then one taken apart (``_step_apart``);
+    of its loss and gradients, the ssd_chunks launches times the kernel's
+    ms at the training shape (``ssd_ms``, phase 3), and at one layer's
+    shape the SSD scan's forward (the kernel with the torch recurrence
+    around it) and the plain SSD VJP (ops._SSDScan.backward)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import PipelineConfig, SyntheticPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.optim import adamw, compress
+
+    arch = get_arch("mamba2-130m")
+    cfg, dev = arch.full, torch.device(DEVICE)
+    batch, seq = _argv_int(TRAIN_FULL_ARGV, "--batch"), _argv_int(TRAIN_FULL_ARGV, "--seq")
+    torch.cuda.reset_peak_memory_stats()
+    model = arch.init(torch.Generator(dev).manual_seed(0), cfg, device=dev)
+    params = steps.trainable(model)
+    opt, resid = adamw.init(params), compress.init_residuals(params)
+    opt_cfg = adamw.AdamWConfig(peak_lr=3e-4, warmup_steps=20, total_steps=2)
+    pipe = SyntheticPipeline(PipelineConfig(vocab=cfg.vocab, seq=seq, global_batch=batch,
+                                            seed=0))
+    args = (torch, arch, cfg, model, params, opt, resid, opt_cfg)
+    _step_apart(*args, steps.batch_to_torch(pipe.next(), dev))  # warm
+    before = ops.LAUNCHES["ssd_chunks"]
+    t_fb, t_c, t_a = _step_apart(*args, steps.batch_to_torch(pipe.next(), dev))
+    launches = ops.LAUNCHES["ssd_chunks"] - before
+    peak = torch.cuda.max_memory_allocated()
+    del model, params, opt, resid
+    torch.cuda.empty_cache()
+    m = cfg.mamba_cfg
+    gen = torch.Generator(DEVICE).manual_seed(SEED)
+    x, B, C = (torch.randn(shape, generator=gen, device=DEVICE).to(cfg.dtype)
+               for shape in ((batch, seq, m.n_heads, m.head_dim),
+                             (batch, seq, m.n_groups, m.d_state),
+                             (batch, seq, m.n_groups, m.d_state)))
+    dt = torch.rand((batch, seq, m.n_heads), generator=gen, device=DEVICE) * 0.1 + 1e-3
+    A = -1.0 - 15.0 * torch.rand((m.n_heads,), generator=gen, device=DEVICE)
+    chunk = min(m.chunk, max(16, seq))
+    reps = 5
+    _, t_fwd = _sync_time(torch, lambda: [ops.ssd_scan(x, dt, A, B, C, chunk=chunk)
+                                          for _ in range(reps + 1)])
+    _, t_fwd = _sync_time(torch, lambda: [ops.ssd_scan(x, dt, A, B, C, chunk=chunk)
+                                          for _ in range(reps)])
+    leaves = [t.detach().requires_grad_(True) for t in (x, dt, A, B, C)]
+    y = ops.ssd_scan(*leaves, chunk=chunk)
+    gy = torch.randn(y.shape, generator=gen, device=DEVICE).to(y.dtype)
+    torch.autograd.grad(y, leaves, gy, retain_graph=True)  # warm-up
+    _, t_vjp = _sync_time(torch, lambda: torch.autograd.grad(y, leaves, gy, retain_graph=True))
+    n = cfg.n_layers
+    fwd_ms = 1e3 * t_fwd / reps
+    print(f"[train] mamba2-130m one step taken apart (batch {batch} x seq {seq}, compressed "
+          f"over one NCCL rank): loss and gradients {t_fb:.3f} s (of it ssd_chunks {launches} "
+          f"launches x {ssd_ms:.4f} ms = {launches * ssd_ms / 1e3:.4f} s; the SSD scan's "
+          f"forward, kernel and torch recurrence, at a layer's shape {fwd_ms:.3f} ms, "
+          f"{launches} a step = {launches * fwd_ms / 1e3:.3f} s; the plain SSD VJP {n} x "
+          f"{t_vjp:.4f} s = {n * t_vjp:.3f} s), compression {t_c:.3f} s, AdamW {t_a:.3f} s; "
+          f"peak memory {peak / 2**30:.2f} GiB", flush=True)
+    if launches != TRAIN_LAUNCHES["mamba2-130m"]["ssd_chunks"]:
+        raise AssertionError(f"mamba2-130m: ssd_chunks launched {launches} times in a step")
 
 
 def _dir_bytes(path: str) -> int:
@@ -1219,6 +1293,8 @@ def main() -> int:
     t0 = _stage("train: starcoder2-3b full width", t0)
     mamba_launches, _ = phase_train_mamba(torch, np)
     t0 = _stage("train: mamba2-130m full width, launch.train.main and resume", t0)
+    phase_train_mamba_apart(torch, results["ssd_chunks"]["train_ms"])
+    t0 = _stage("train: mamba2-130m full width, a step taken apart", t0)
     train_launches = {k: TRAIN_COUNTED * star_launches.get(k, 0) + mamba_launches.get(k, 0)
                       for k in ops.LAUNCHES}
     for name in ("int8_quantize", "int8_dequantize"):

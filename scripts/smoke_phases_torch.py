@@ -7,10 +7,12 @@ on one card, so that one call can time two commits in turns.
 It uses the ``chip_smoke.py`` and ``src/`` of the current directory, which
 may hold an older commit unpacked with ``git archive``: the card's name
 and power limit, the kernel build, phase 6b (``launch.serve.main`` at full
-width for starcoder2-3b and mamba2-130m, kernel arm and plain arm) and
-phase 8 (starcoder2-3b training at full width: step time, tokens/s, peak
-memory, launches a step, one step taken apart, kernel arm against plain
-arm), with LABEL on its stage lines. To compare a parent with a change,
+width for starcoder2-3b and mamba2-130m, kernel arm and plain arm: prefill
+ms and decode tokens/s), phase 8 (starcoder2-3b training at full width:
+step time, tokens/s, peak memory, launches a step, one step taken apart,
+kernel arm against plain arm) and phase 9's ``launch.train.main`` run of
+mamba2-130m (six steps with a resume: step times, peak memory), with LABEL
+on its stage lines. To compare a parent with a change,
 run it in the parent's checkout, the change's, the change's again and the
 parent's, in one call. It exits non-zero without a CUDA device and
 outside a checkout.
@@ -46,7 +48,9 @@ def main(argv=None) -> int:
     t0 = cs._stage(f"{label}: serve, full width", t0)
     ops.reset_launches()
     cs.phase_train_starcoder(torch, np)
-    cs._stage(f"{label}: train starcoder2-3b, full width", t0)
+    t0 = cs._stage(f"{label}: train starcoder2-3b, full width", t0)
+    cs.phase_train_mamba(torch, np)
+    cs._stage(f"{label}: train mamba2-130m, full width", t0)
     return 0
 
 

@@ -15,7 +15,6 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Optional
 
 import torch
 
@@ -62,11 +61,10 @@ def _check(name: str, a: torch.Tensor, shape) -> None:
         )
 
 
-def ssd_chunks_cuda(x, dt, a, B, C, *, heads: int, slice_heads: Optional[int] = None):
+def ssd_chunks_cuda(x, dt, a, B, C, *, heads: int):
     """x (bh, nc, T, p), dt and a (bh, nc, T), B and C (b, nc*T, g, n), all
     f32 CUDA -> (y_intra (bh, nc, T, p), states (bh, nc, n, p),
-    c_decay (bh, nc, T, n), chunk_decay (bh, nc, 1, 1)). ``slice_heads``
-    overrides ``head_slice``'s choice (the tests use it)."""
+    c_decay (bh, nc, T, n), chunk_decay (bh, nc, 1, 1))."""
     if x.dim() != 4 or B.dim() != 4:
         raise ValueError(
             f"ssd_chunks: x {tuple(x.shape)} and B {tuple(B.shape)} must be 4-D")
@@ -94,10 +92,7 @@ def ssd_chunks_cuda(x, dt, a, B, C, *, heads: int, slice_heads: Optional[int] = 
         return y, states, c_decay, chunk_decay
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     per_group = heads // g
-    if slice_heads is None:
-        slice_heads = head_slice(b * nc * g, per_group, _sm_count(index))
-    if not 1 <= slice_heads <= MAX_HEAD_SLICE:
-        raise ValueError(f"ssd_chunks: head slice {slice_heads} outside 1..{MAX_HEAD_SLICE}")
+    slice_heads = head_slice(b * nc * g, per_group, _sm_count(index))
     if b * nc * g * -(-per_group // slice_heads) > MAX_BLOCKS:
         raise ValueError(f"ssd_chunks: more than {MAX_BLOCKS} blocks")
     _build.launch(

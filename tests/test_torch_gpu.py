@@ -299,26 +299,37 @@ def test_ssd_chunks_kernel_matches_plain(cuda, case):
         torch.testing.assert_close(gt, wt, rtol=1e-4, atol=1e-4 * scale)
 
 
-@pytest.mark.parametrize("slice_heads", [1, 4, 6])
-def test_ssd_chunks_kernel_head_slices(cuda, slice_heads):
-    """A block runs a slice of one group's heads, sharing C B^T: slices of
-    1, 4 (6 heads: a slice of 4, then one of 2) and all 6, against the
-    plain version."""
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.ssd_scan import ssd_chunks_cuda
+# (b, h, g, nc): 4 x 16 x 1 = 64 blocks a head slice; 24 heads a group take
+# slices of 12 on the H100's 132 SMs, 21 heads one of 11 and one of 10;
+# 2 x 2 x 2 = 8 blocks with 6 heads a group, one head a block
+SLICE_CASES = [(4, 24, 1, 16), (4, 21, 1, 16), (2, 12, 2, 2)]
 
-    b, h, g, nc, T, p, n = 2, 12, 2, 2, 40, 24, 32
-    rng = np.random.default_rng(slice_heads)
+
+@pytest.mark.parametrize("case", SLICE_CASES)
+def test_ssd_chunks_kernel_head_slices(cuda, case):
+    """A block runs a slice of one group's heads, sharing C B^T; the slice
+    ``head_slice`` picks, a last slice shorter than the others included,
+    against the plain version."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ssd_scan import _sm_count, head_slice
+
+    b, h, g, nc = case
+    T, p, n = 32, 16, 32
+    per_group = h // g
+    heads = head_slice(b * nc * g, per_group, _sm_count(torch.cuda.current_device()))
+    rng = np.random.default_rng(h)
     x, dt, A, B, C = _ssd_inputs(rng, b, nc * T, h, p, g, n, cuda)
     xc = x.movedim(2, 1).reshape(b * h, nc, T, p).contiguous()
     dtc = dt.movedim(2, 1).reshape(b * h, nc, T).contiguous()
     a = (dtc * A.repeat(b)[:, None, None]).contiguous()
-    got = ssd_chunks_cuda(xc, dtc, a, B, C, heads=h, slice_heads=slice_heads)
+    got = ops.ssd_chunks(xc, dtc, a, B, C, heads=h)
     torch.cuda.synchronize()
     want = ops.ssd_chunks(xc, dtc, a, B, C, heads=h, impl="ref")
     for gt, wt in zip(got, want):
         scale = float(wt.abs().max())
         torch.testing.assert_close(gt, wt, rtol=1e-4, atol=1e-4 * scale)
+    if torch.cuda.get_device_properties(0).multi_processor_count == 132:
+        assert heads == {24: 12, 21: 11, 12: 1}[h]
 
 
 def test_ssd_chunks_kernel_takes_65536_batch_heads(cuda):

@@ -545,6 +545,68 @@ def test_ssd_scan_gradients_match_reference(s, chunk, g):
                                    atol=2e-5 * max(1.0, np.abs(wt).max()), err_msg=name)
 
 
+SSD_H0_CASES = [(64, 16, 1), (50, 16, 2), (100, 32, 1)]
+
+
+def _ssd_h0(seed):
+    return np.random.default_rng(seed).normal(size=(2, 4, 16, 8)).astype(np.float32)
+
+
+@pytest.mark.parametrize("s,chunk,g", SSD_H0_CASES)
+def test_ssd_scan_with_h0_matches_reference(s, chunk, g):
+    """``ops.ssd_scan(h0=)`` (the plain scan) and ``ssd_scan_chunked(h0=)``
+    (the kernel's wrapper around the plain chunk block) against the
+    reference's ``ops.ssd_scan(h0=)`` (its jnp scan) and its Pallas path
+    ``_ssd_pallas_impl(h0=)`` in interpret mode, s not a multiple of the
+    chunk included."""
+    from repro.kernels.ops import _ssd_pallas_impl
+
+    arrs = _ssd_inputs(2, s, 4, 8, g, 16, seed=s + chunk + 7 * g)
+    h0 = _ssd_h0(s + g)
+    jarrs = [jnp.asarray(a) for a in arrs]
+    wants = [jops.ssd_scan(*jarrs, chunk=chunk, h0=jnp.asarray(h0), return_state=True),
+             _ssd_pallas_impl(*jarrs, chunk=chunk, h0=jnp.asarray(h0), return_state=True,
+                              interpret=True)]
+    t = [torch.from_numpy(a) for a in arrs]
+    for fn in (ops.ssd_scan, ops.ssd_scan_chunked):
+        y, hs = fn(*t, chunk=chunk, h0=torch.from_numpy(h0), return_state=True)
+        y0 = fn(*t, chunk=chunk)
+        assert not torch.allclose(y, y0)  # the initial state reached the output
+        for want_y, want_h in wants:
+            # f32 sums over T and n in another order, as the h0-free test
+            np.testing.assert_allclose(y.numpy(), np.asarray(want_y), rtol=0, atol=2e-4)
+            np.testing.assert_allclose(hs.numpy(), np.asarray(want_h), rtol=0, atol=2e-4)
+
+
+@pytest.mark.parametrize("s,chunk,g", SSD_H0_CASES)
+def test_ssd_scan_gradients_with_h0_match_reference(s, chunk, g):
+    """The gradient of every input, h0 included, through ``_SSDScan``'s
+    plain VJP against ``jax.vjp`` of the reference's ``ssd_scan_ref``, with
+    cotangents on y and on the final state."""
+    import jax
+
+    arrs = _ssd_inputs(2, s, 4, 8, g, 16, seed=s * 5 + g)
+    h0 = _ssd_h0(s * 5 + g)
+    rng = np.random.default_rng(s + 1)
+    gy = rng.standard_normal((2, s, 4, 8)).astype(np.float32)
+    gh = rng.standard_normal((2, 4, 16, 8)).astype(np.float32)
+
+    def jf(x, dt, A, B, C, h0):
+        return jref.ssd_scan_ref(x, dt, A, B, C, chunk=chunk, h0=h0, return_state=True)
+
+    _, vjp = jax.vjp(jf, *(jnp.asarray(a) for a in (*arrs, h0)))
+    want = vjp((jnp.asarray(gy), jnp.asarray(gh)))
+    t = [torch.from_numpy(a).requires_grad_(True) for a in (*arrs, h0)]
+    y, hs = ops.ssd_scan(*t[:5], chunk=chunk, h0=t[5], return_state=True)
+    assert "SSDScan" in type(y.grad_fn).__name__
+    torch.autograd.backward([y, hs], [torch.from_numpy(gy), torch.from_numpy(gh)])
+    for name, a, wt in zip("x dt A B C h0".split(), t, want):
+        wt = np.asarray(wt)
+        # f32 sums over chunk and state in another order, relative to scale
+        np.testing.assert_allclose(a.grad.numpy(), wt, rtol=0,
+                                   atol=2e-5 * max(1.0, np.abs(wt).max()), err_msg=name)
+
+
 def test_kernel_wrappers_skip_autograd_without_grad():
     """Serving (no input needs a gradient) calls the kernels bare, so the
     serving paths' launch counts stay as they were."""

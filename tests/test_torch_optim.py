@@ -48,12 +48,16 @@ def test_adamw_update_matches_reference_across_warmup(clip, dtype):
     r_update = jax.jit(lambda p, g, s: r_adamw.update(r_cfg, p, g, s))
 
     cfg = adamw.AdamWConfig(**cfg_kw)
-    params = {k: torch.from_numpy(v).to(td) for k, v in p0.items()}
+    # copies: the update works in place, and jnp.asarray may share a numpy
+    # buffer that happens to be 64-byte aligned (about 1 in 20 here), so an
+    # in-place step on a torch view of p0 would move the reference's
+    # parameters too
+    params = {k: torch.tensor(v).to(td) for k, v in p0.items()}
     state = adamw.init(params)
     for g in grads:
         r_params, r_state, r_m = r_update(r_params, {k: jnp.asarray(v, jd) for k, v in g.items()},
                                           r_state)
-        m = adamw.update(cfg, params, {k: torch.from_numpy(v).to(td) for k, v in g.items()},
+        m = adamw.update(cfg, params, {k: torch.tensor(v).to(td) for k, v in g.items()},
                          state)
         # the schedule's f32 cos and the norm's sum order: a few ulps
         np.testing.assert_allclose(float(m["lr"]), float(r_m["lr"]), rtol=1e-6)
