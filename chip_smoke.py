@@ -13,10 +13,14 @@ Phases (every failure raises; nothing is caught):
    its bound: many calls
    captured in one CUDA graph and replayed between CUDA events, so the
    host's dispatch is not in the time (eager back-to-back calls are printed
-   beside it). flash_attention at starcoder2-3b's prefill, decode and
-   training shapes, its output and its lse (with
-   F.scaled_dot_product_attention timed as the library yardstick; the
-   port never calls it), ssd_chunks at mamba2-130m's
+   beside it). rbf_gram at the paper loop's and the engine's shapes;
+   pareto_mask at B = 10,000, G = 352 (the per-row sort) and at G = 1,500
+   (past the sort's 1,024 slots: all pairs). flash_attention at
+   starcoder2-3b's prefill, decode and training shapes and at gemma3-12b's
+   local attention (head dim 256, window 1,024: a 4,096 sequence and a
+   decode step), its output and its lse (with
+   F.scaled_dot_product_attention, given the window's mask, timed as the
+   library yardstick; the port never calls it), ssd_chunks at mamba2-130m's
    prefill and training shapes, the int8 codec at starcoder2-3b's embedding
    and MLP weights, a ragged size and edge blocks (zero, NaN, inf,
    half-way).
@@ -24,6 +28,7 @@ Phases (every failure raises; nothing is caught):
    (11 f x 32 cores x 5 inputs, 4 apps: a (4, 1760, 1760) Gram), all 20
    plans, governors at the --quick settings; the plans are held against
    tests/data/torch_port_eval_golden.json (written by the JAX package).
+   rbf_gram's launches in phases 4-5 are printed by shape.
 5. fleet-scale planning: plan_many / pareto_many over B = 10,000 workloads
    of 20 families; the fused kernel path, its plain version and the exact
    path must agree exactly. The kernel and plain rounds run twice in the
@@ -81,6 +86,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 SEED = 42
 RBF_ATOL = 2e-6  # kernel vs plain rbf_gram: same expression and order
 B_FLEET = 10_000
+PARETO_PAIRS_B, PARETO_PAIRS_G = 200, 1500  # pareto_mask past the sort's 1,024 slots
 GOLDEN = os.path.join(HERE, "tests", "data", "torch_port_eval_golden.json")
 SERVE_GOLDEN = os.path.join(HERE, "tests", "data", "torch_port_serve_golden.npz")
 NEAR_TIE_REL = 1e-3
@@ -149,6 +155,24 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
 TF32_OPS_PER_S = 495e12
+
+
+def _tally_shapes(module, name: str):
+    """Count the calls of ``module.name`` (a kernel wrapper taking x (b, n,
+    d) and y (b, m, d)) by (b, n, m, d), until ``restore()``; the wrapper
+    and its launch count run as before."""
+    import collections
+
+    fn = getattr(module, name)
+    tally = collections.Counter()
+
+    def counted(x, y, *args, **kw):
+        if x.shape[0] * x.shape[1] * y.shape[1]:  # an empty output launches nothing
+            tally[(x.shape[0], x.shape[1], y.shape[1], x.shape[2])] += 1
+        return fn(x, y, *args, **kw)
+
+    setattr(module, name, counted)
+    return tally, lambda: setattr(module, name, fn)
 
 
 def _stage(name: str, t0: float) -> float:
@@ -263,6 +287,8 @@ def _pareto_inputs(np, rng, b, g):
     t[::13, 3] = np.inf
     e[::17, 7] = -np.inf
     t[::19, 9] = -np.inf
+    t[::23, 0], t[::23, 1] = -0.0, 0.0  # -0.0 == +0.0, in t and in e
+    e[::29, 0], e[::29, 1] = 0.0, -0.0
     return t, e, mask
 
 
@@ -333,7 +359,25 @@ def phase_kernels(torch, np, kind):
     results["plan_argmin"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
                                   bound_by=by, max_abs_err=err)
 
-    # pareto_mask at B = 10^4, G = 352: identical keep-sets
+    # pareto_mask at B = 10^4, G = 352 (the sort path) and past the sort's
+    # capacity (the all-pairs path): identical keep-sets
+    pareto = [_check_pareto(torch, np, rng, kind, bb, gg)
+              for bb, gg in ((b, g), (PARETO_PAIRS_B, PARETO_PAIRS_G))]
+    results["pareto_mask"] = dict(pareto[0], **{f"pairs_{key}": pareto[1][key] for key in
+                                                ("ms", "bound_ms", "max_abs_err")})
+    results["flash_attention"] = _check_flash(torch, np, rng, kind)
+    results["ssd_chunks"] = _check_ssd(torch, np, rng, kind)
+    results.update(_check_codec(torch, np, kind))
+    return results
+
+
+def _check_pareto(torch, np, rng, kind, b, g):
+    """One pareto_mask shape: kernel vs plain (identical keep-sets), timed
+    beside its bound."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.plan_grid import pareto_plan
+
+    dev = torch.device(DEVICE)
     tn, en, mn = _pareto_inputs(np, rng, b, g)
     t = torch.from_numpy(tn).to(dev)
     e = torch.from_numpy(en).to(dev)
@@ -343,7 +387,7 @@ def phase_kernels(torch, np, kind):
     mism = int((got != want).sum())
     err = float((got.int() - want.int()).abs().max())
     if mism:
-        raise AssertionError(f"pareto_mask: {mism} of {b * g} points differ")
+        raise AssertionError(f"pareto_mask {(b, g)}: {mism} of {b * g} points differ")
     ms = _time_ms(torch, lambda: ops.pareto_mask(t, e, mask), 50)
     eager = _eager_ms(torch, lambda: ops.pareto_mask(t, e, mask), 50)
     plain_ms = _time_ms(torch, lambda: ops.pareto_mask(t, e, mask, impl="ref"), 2)
@@ -352,15 +396,13 @@ def phase_kernels(torch, np, kind):
     # about 3 log2(G) comparisons and 2 operations a point, far below the
     # 10 bytes a point (t, e, mask in, keep-set out) it must move
     bound, by = _bound_ms(10.0 * b * g, b * g * (3.0 * math.log2(g) + 2.0))
-    print(f"[kernel] pareto_mask B={b} G={g}: {ms:.4f} ms (eager calls {eager:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, bound {bound * 1e3:.2f} us by {by}, {mism} "
-          f"points differ) on {kind}", flush=True)
-    results["pareto_mask"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                                  bound_by=by, max_abs_err=err)
-    results["flash_attention"] = _check_flash(torch, np, rng, kind)
-    results["ssd_chunks"] = _check_ssd(torch, np, rng, kind)
-    results.update(_check_codec(torch, np, kind))
-    return results
+    plan = pareto_plan(b, g)
+    print(f"[kernel] pareto_mask B={b} G={g} ({plan.path}, {plan.slots} slots): {ms:.4f} ms "
+          f"(eager calls {eager:.4f} ms, plain {plain_ms:.4f} ms, bound {bound * 1e3:.2f} us "
+          f"by {by}, {mism} points differ, {int(want.sum())} kept of "
+          f"{int((mn & np.isfinite(tn) & np.isfinite(en)).sum())} feasible) on {kind}",
+          flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, max_abs_err=err)
 
 
 def _codec_edges(np):
@@ -466,15 +508,19 @@ def _flash_case(torch, np, rng, kind, b, h, hk, sq, skv, d, dtype, **kw):
                              f"plain version's (max |err| {lse_err:.3g}, worst element at "
                              f"{lse_worst:.3g} x its tolerance)")
     # the work: the (query, key) pairs each row sees, 4 d flops a pair
-    # (QK^T and PV); each input read once, the output written once
+    # (QK^T and PV); each input read once (the keys some row sees), the
+    # output written once
     kv_len = kw.get("kv_len") or skv
     q_off = kw.get("q_offset", 0)
-    if kw.get("causal", True):
-        pairs = sum(min(kv_len, q_off + i + 1) for i in range(sq))
-    else:
-        pairs = sq * kv_len
+    causal, window = kw.get("causal", True), kw.get("window")
+    pairs = 0
+    for i in range(sq):
+        hi = min(kv_len, q_off + i + 1) if causal else kv_len
+        lo = max(0, q_off + i - window + 1) if window else 0
+        pairs += max(0, hi - lo)
+    seen = kv_len - (max(0, q_off - window + 1) if window else 0)
     n_ops = 4.0 * b * h * d * pairs
-    n_bytes = q.element_size() * (2 * b * h * sq * d + 2 * b * hk * kv_len * d)
+    n_bytes = q.element_size() * (2 * b * h * sq * d + 2 * b * hk * seen * d)
     bound, by = _bound_ms(n_bytes, n_ops, BF16_OPS_PER_S)
     reps = 20 if sq > 1 else 200
     ms = _time_ms(torch, lambda: ops.flash_attention(q, k, v, **kw), reps)
@@ -483,9 +529,15 @@ def _flash_case(torch, np, rng, kind, b, h, hk, sq, skv, d, dtype, **kw):
                         2 if sq > 1 else 20)
     import torch.nn.functional as F
     ks, vs = k[:, :, :kv_len], v[:, :, :kv_len]
-    lib_causal = bool(kw.get("causal", True)) and sq > 1
-    library_ms = _time_ms(torch, lambda: F.scaled_dot_product_attention(
-        q, ks, vs, is_causal=lib_causal, enable_gqa=True), reps)
+    if window:  # the same function: the window's mask, built outside the timing
+        qp = torch.arange(q_off, q_off + sq, device=dev)[:, None]
+        kp = torch.arange(kv_len, device=dev)[None, :]
+        allowed = (qp - kp < window) & ((qp >= kp) if causal else True)
+        library_ms = _time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, ks, vs, attn_mask=allowed, enable_gqa=True), reps)
+    else:
+        library_ms = _time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, ks, vs, is_causal=causal and sq > 1, enable_gqa=True), reps)
     plan = launch_plan(b, h, hk, sq, skv, d, dtype, kv_len)
     print(f"[kernel] flash_attention b={b} h={h} hk={hk} sq={sq} kv_len={kv_len} d={d} "
           f"{str(dtype).replace('torch.', '')} {kw} ({plan.path}, splits {plan.splits}): "
@@ -502,18 +554,25 @@ def _flash_case(torch, np, rng, kind, b, h, hk, sq, skv, d, dtype, **kw):
 def _check_flash(torch, np, rng, kind):
     """starcoder2-3b's attention: prefill (b 8, H 24, Hk 2, S 1024, D 128,
     causal), a decode step (one row at q_offset 1055 over a 1,064-slot
-    cache, kv_len 1,056) and training (b 2, S 4,096, causal), bf16."""
+    cache, kv_len 1,056) and training (b 2, S 4,096, causal), bf16; and
+    gemma3-12b's local attention at head dim 256 (H 16, Hk 8, window
+    1,024): a sequence of 4,096 and a decode step over a 4,096-key cache."""
     bf16 = torch.bfloat16
     prefill = _flash_case(torch, np, rng, kind, 8, 24, 2, 1024, 1024, 128, bf16,
                           causal=True)
     decode = _flash_case(torch, np, rng, kind, 8, 24, 2, 1, 1064, 128, bf16, causal=False,
                          q_offset=1055, kv_len=1056)
     train = _flash_case(torch, np, rng, kind, 2, 24, 2, 4096, 4096, 128, bf16, causal=True)
+    d256 = _flash_case(torch, np, rng, kind, 1, 16, 8, 4096, 4096, 256, bf16, causal=True,
+                       window=1024)
+    d256_decode = _flash_case(torch, np, rng, kind, 1, 16, 8, 1, 4096, 256, bf16,
+                              causal=True, window=1024, q_offset=4095, kv_len=4096)
     # the JSON line carries the prefill shape, the larger share of the
     # serving time, and the other shapes' errors and times under their own
     # keys
     out = dict(prefill)
-    for name, r in (("decode", decode), ("train", train)):
+    for name, r in (("decode", decode), ("train", train), ("d256", d256),
+                    ("d256_decode", d256_decode)):
         for key in ("max_abs_err", "lse_max_abs_err", "ms", "library_ms", "bound_ms"):
             out[f"{name}_{key}"] = r[key]
     return out
@@ -1275,11 +1334,18 @@ def main() -> int:
     t0 = _stage("kernels against their plain versions", t0)
 
     ops.reset_launches()  # the main path's launches are counted from here
+    rbf_shapes, restore = _tally_shapes(ops, "rbf_gram_cuda")
     phase_paper_loop(torch, np)
     t0 = _stage("paper loop", t0)
     phase_fleet(torch, np)
     t0 = _stage("fleet-scale planning", t0)
+    restore()
     launches = dict(ops.LAUNCHES)
+    print(f"[launches] rbf_gram in phases 4-5 by shape (b, n, m, d): "
+          f"{sorted(rbf_shapes.items(), key=lambda kv: -kv[1])}", flush=True)
+    if sum(rbf_shapes.values()) != launches["rbf_gram"]:
+        raise AssertionError(f"rbf_gram: {launches['rbf_gram']} launches, "
+                             f"{sum(rbf_shapes.values())} calls by shape")
     phase_serve_golden(torch, np)
     t0 = _stage("serve: SMOKE golden on the card", t0)
     serve_launches = phase_serve_full(torch, np)
@@ -1330,7 +1396,8 @@ def main() -> int:
         # the other shapes' numbers (flash_attention's decode and training,
         # ssd_chunks' training) and flash_attention's lse error
         entry.update({key: val for key, val in r.items()
-                      if key.startswith(("decode_", "train_", "lse_", "fp32_"))})
+                      if key.startswith(("decode_", "train_", "lse_", "fp32_", "d256_",
+                                         "pairs_"))})
         if name in ("flash_attention", "ssd_chunks"):
             entry["train_launches"] = train_launches[name]
         line.append(entry)

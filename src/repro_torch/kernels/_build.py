@@ -47,8 +47,8 @@ _SIGNATURES = {
     "rbf_gram_launch": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     # t, w, k, mask, out, B, G, time_floor, device, stream
     "plan_argmin_launch": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
-    # t, e, mask, out, B, G, device, stream
-    "pareto_mask_launch": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # t, e, mask, out, B, G, slots (0: all pairs), device, stream
+    "pareto_mask_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # q, k, v, o, lse, scratch, scratch elements, b, h, hk, sq, skv, d,
     # is_bf16, scale, causal, window, kv_len, q_offset, splits, device, stream
     "flash_attention_launch": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _F,

@@ -55,6 +55,15 @@
 //   flash_row_kernel, fp32 FMAs (TF32 stays off), with finite NEG_INF =
 //   -1e30, p = 0 where masked, and l floored at 1e-30 as
 //   flash_attention.py:81-105; each also writes lse.
+// * Head dims 16, 32, 64, 128 and 256 have instances (the wrapper pads 96
+//   and 112 to 128). At 256 (gemma3-12b) each path keeps its design within
+//   the SM's budget: the wgmma tile kernel takes 164,864 bytes of shared
+//   memory, one block an SM, and runs P V as two n = 128 halves into its
+//   128 accumulators a thread; the decode kernel reads its Q fragments from
+//   shared memory instead of 64 registers and takes at most 32 packed rows
+//   a block (64 would spill); the f32 tile kernel stages key tiles of 16
+//   (32 KB of static shared memory), and a slot of the f32 row kernel is
+//   one warp, 8 dims a lane.
 // * No --use_fast_math: expf / exp2f / logf are the accurate ones.
 
 #include <cuda_bf16.h>
@@ -134,15 +143,17 @@ __device__ __forceinline__ float lse_of(float m, float l) {
 }
 
 // One block per (b*h, 64-query tile), 4 threads a query row, each holding a
-// quarter of the row's q and f32 accumulator; K/V tiles of 32 keys staged in
-// shared memory, read as float4 broadcasts; a row's dot product summed over
-// its 4 threads with two xor shuffles.
+// quarter of the row's q and f32 accumulator; K/V tiles of 32 keys (16 at
+// D = 256, so that both stay under the 48 KB of static shared memory)
+// staged in shared memory, read as float4 broadcasts; a row's dot product
+// summed over its 4 threads with two xor shuffles.
 template <int D>
 __global__ void __launch_bounds__(kTileThreads)
     flash_tile_kernel(Params p) {
   constexpr int kVec = D / 4 / kParts;  // float4 chunks a thread holds
-  __shared__ float4 sk[kTileK][D / 4];
-  __shared__ float4 sv[kTileK][D / 4];
+  constexpr int TK = D > 128 ? kTileK / 2 : kTileK;
+  __shared__ float4 sk[TK][D / 4];
+  __shared__ float4 sv[TK][D / 4];
 
   const int bh = blockIdx.y;
   const int b = bh / p.H;
@@ -176,9 +187,9 @@ __global__ void __launch_bounds__(kTileThreads)
   int k_lo = 0;
   if (p.window > 0) k_lo = max(0, p.q_offset + q0 - p.window + 1);
 
-  for (int k0 = (k_lo / kTileK) * kTileK; k0 < k_hi; k0 += kTileK) {
+  for (int k0 = (k_lo / TK) * TK; k0 < k_hi; k0 += TK) {
     __syncthreads();  // the previous tile is consumed
-    for (int idx = tid; idx < kTileK * D; idx += kTileThreads) {
+    for (int idx = tid; idx < TK * D; idx += kTileThreads) {
       const int r = idx / D;
       const int c = idx - r * D;
       const int kr = k0 + r;
@@ -192,11 +203,11 @@ __global__ void __launch_bounds__(kTileThreads)
     }
     __syncthreads();
 
-    float s[kTileK];
+    float s[TK];
     uint32_t ok_bits = 0u;
     float m_cur = kNegInf;
 #pragma unroll
-    for (int j = 0; j < kTileK; ++j) {
+    for (int j = 0; j < TK; ++j) {
       float part_sum = 0.f;
 #pragma unroll
       for (int i = 0; i < kVec; ++i) part_sum = dot4(qr[i], sk[j][part + kParts * i], part_sum);
@@ -211,7 +222,7 @@ __global__ void __launch_bounds__(kTileThreads)
     const float corr = expf(m - m_new);
     float psum = 0.f;
 #pragma unroll
-    for (int j = 0; j < kTileK; ++j) {
+    for (int j = 0; j < TK; ++j) {
       s[j] = ((ok_bits >> j) & 1u) ? expf(s[j] - m_new) : 0.f;
       psum += s[j];
     }
@@ -220,7 +231,7 @@ __global__ void __launch_bounds__(kTileThreads)
     for (int i = 0; i < kVec; ++i) {
       float4 a = make_float4(acc[i].x * corr, acc[i].y * corr, acc[i].z * corr, acc[i].w * corr);
 #pragma unroll
-      for (int j = 0; j < kTileK; ++j) a = axpby4(a, 1.f, s[j], sv[j][part + kParts * i]);
+      for (int j = 0; j < TK; ++j) a = axpby4(a, 1.f, s[j], sv[j][part + kParts * i]);
       acc[i] = a;
     }
     m = m_new;
@@ -242,17 +253,19 @@ __global__ void __launch_bounds__(kTileThreads)
 }
 
 // One block per (query row, b*h): the keys split over slots of D/4 lanes (a
-// lane holds 4 dims of q and of its slot's accumulator); each slot walks
-// keys slot, slot + nslots, ... four at a time with its own running max and
-// sum, and the slots merge through shared memory at the end.
+// lane holds 4 dims of q and of its slot's accumulator; at D = 256 a slot
+// is one warp and a lane holds 8 dims, dims 4 lane.. and 128 + 4 lane..);
+// each slot walks keys slot, slot + nslots, ... four at a time with its own
+// running max and sum, and the slots merge through shared memory at the end.
 template <int D>
 __global__ void __launch_bounds__(kRowThreads)
     flash_row_kernel(Params p) {
-  constexpr int kLanes = D / 4;  // lanes of one slot, 4 dims each
+  constexpr int kVecs = D > 128 ? D / 128 : 1;  // float4 chunks a lane holds
+  constexpr int kLanes = D / 4 / kVecs;          // lanes of one slot, at most a warp
   constexpr int kSlots = kRowThreads / kLanes;
   __shared__ float s_m[kSlots];
   __shared__ float s_l[kSlots];
-  __shared__ float4 s_acc[kSlots][kLanes];
+  __shared__ float4 s_acc[kSlots][kLanes * kVecs];
 
   const int qi = blockIdx.x;
   const int bh = blockIdx.y;
@@ -265,7 +278,13 @@ __global__ void __launch_bounds__(kRowThreads)
   const size_t kv_base = (size_t)(b * p.Hk + hk) * p.Skv * D;
   const float* kb = static_cast<const float*>(p.k) + kv_base + 4 * lane;
   const float* vb = static_cast<const float*>(p.v) + kv_base + 4 * lane;
-  const float4 qr = load4(static_cast<const float*>(p.q) + ((size_t)bh * p.Sq + qi) * D + 4 * lane);
+  const float* qrow = static_cast<const float*>(p.q) + ((size_t)bh * p.Sq + qi) * D + 4 * lane;
+  float4 qr[kVecs], acc[kVecs];
+#pragma unroll
+  for (int i = 0; i < kVecs; ++i) {
+    qr[i] = load4(qrow + 4 * kLanes * i);
+    acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
 
   int k_hi = p.kv_len;
   if (p.causal) k_hi = min(k_hi, q_pos + 1);
@@ -274,24 +293,28 @@ __global__ void __launch_bounds__(kRowThreads)
 
   float m = kNegInf;
   float l = 0.f;
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
   // the trip count is the same for every thread: the shuffles stay converged
   for (int kbase = k_lo; kbase < k_hi; kbase += kSlots * kRowUnroll) {
-    float4 kk[kRowUnroll], vv[kRowUnroll];
+    float4 kk[kRowUnroll][kVecs], vv[kRowUnroll][kVecs];
     bool ok[kRowUnroll];
 #pragma unroll
     for (int u = 0; u < kRowUnroll; ++u) {
       const int kp = kbase + slot + u * kSlots;
       ok[u] = kp < k_hi && allowed(p, q_pos, kp);
       const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-      kk[u] = ok[u] ? load4(kb + (size_t)kp * D) : z;
-      vv[u] = ok[u] ? load4(vb + (size_t)kp * D) : z;
+#pragma unroll
+      for (int i = 0; i < kVecs; ++i) {
+        kk[u][i] = ok[u] ? load4(kb + (size_t)kp * D + 4 * kLanes * i) : z;
+        vv[u][i] = ok[u] ? load4(vb + (size_t)kp * D + 4 * kLanes * i) : z;
+      }
     }
     float s[kRowUnroll];
     float m_cur = kNegInf;
 #pragma unroll
     for (int u = 0; u < kRowUnroll; ++u) {
-      float d = dot4(qr, kk[u], 0.f);
+      float d = 0.f;
+#pragma unroll
+      for (int i = 0; i < kVecs; ++i) d = dot4(qr[i], kk[u][i], d);
 #pragma unroll
       for (int off = kLanes / 2; off > 0; off >>= 1) d += __shfl_xor_sync(0xffffffffu, d, off);
       s[u] = ok[u] ? d * p.scale : kNegInf;
@@ -300,15 +323,20 @@ __global__ void __launch_bounds__(kRowThreads)
     const float m_new = fmaxf(m, m_cur);
     const float corr = expf(m - m_new);
     float psum = 0.f;
-    float4 a = make_float4(acc.x * corr, acc.y * corr, acc.z * corr, acc.w * corr);
+    float4 a[kVecs];
+#pragma unroll
+    for (int i = 0; i < kVecs; ++i)
+      a[i] = make_float4(acc[i].x * corr, acc[i].y * corr, acc[i].z * corr, acc[i].w * corr);
 #pragma unroll
     for (int u = 0; u < kRowUnroll; ++u) {
       const float pu = ok[u] ? expf(s[u] - m_new) : 0.f;
       psum += pu;
-      a = axpby4(a, 1.f, pu, vv[u]);
+#pragma unroll
+      for (int i = 0; i < kVecs; ++i) a[i] = axpby4(a[i], 1.f, pu, vv[u][i]);
     }
     l = l * corr + psum;
-    acc = a;
+#pragma unroll
+    for (int i = 0; i < kVecs; ++i) acc[i] = a[i];
     m = m_new;
   }
 
@@ -316,9 +344,10 @@ __global__ void __launch_bounds__(kRowThreads)
     s_m[slot] = m;
     s_l[slot] = l;
   }
-  s_acc[slot][lane] = acc;
+#pragma unroll
+  for (int i = 0; i < kVecs; ++i) s_acc[slot][lane + kLanes * i] = acc[i];
   __syncthreads();
-  if (threadIdx.x < kLanes) {
+  if (threadIdx.x < kLanes * kVecs) {  // one float4 of the output row a thread
     float mx = kNegInf;
     for (int s = 0; s < kSlots; ++s) mx = fmaxf(mx, s_m[s]);
     float lt = 0.f;
@@ -571,9 +600,22 @@ struct PV<128> {
     wgmma_rs_m64n128(o, a, desc);
   }
 };
+// D = 256: two n = 128 products, on the accumulator's halves (n8 blocks
+// 0-15 and 16-31) and on V's column atoms 0-1 and 2-3
+template <>
+struct PV<256> {
+  static __device__ __forceinline__ void run(float (&o)[128], const uint32_t (&a)[4],
+                                             uint64_t desc) {
+    constexpr uint64_t kHalf = (2 * 64 * 128) >> 4;  // two atoms, in descriptor units
+    wgmma_rs_m64n128(*reinterpret_cast<float(*)[64]>(&o[0]), a, desc);
+    wgmma_rs_m64n128(*reinterpret_cast<float(*)[64]>(&o[64]), a, desc + kHalf);
+  }
+};
 
+// two blocks an SM up to D = 128; at D = 256 the 164,864 bytes of shared
+// memory hold one, and the 128 accumulators a thread want the registers
 template <int D>
-__global__ void __launch_bounds__(kMmaThreads, 2)
+__global__ void __launch_bounds__(kMmaThreads, D > 128 ? 1 : 2)
     flash_mma_tile_kernel(Params p) {
   constexpr int DP = MmaTile<D>::kDP;
   constexpr int kAtom = MmaTile<D>::kAtomBytes;
@@ -744,10 +786,17 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
 // bf16 decode kernel (sq < 16): GQA-packed rows, key splits, then a merge
 // ---------------------------------------------------------------------------
 
+// Up to D = 128 a thread keeps its Q fragments in registers; at D = 256
+// they would take 64 of them beside the 128 of the O accumulator, so the
+// block's (at most 32, launch_decode) packed Q rows sit in shared memory
+// after the K/V stages and each k step reads its fragment there.
 template <int D>
 struct Decode {
   static constexpr int kLd = D + 8;  // shared row stride (bf16): 16-byte pad, no bank conflicts
-  static constexpr int kSmem = 2 * 2 * kDecTileK * kLd * 2;  // 2 stages of K and V
+  static constexpr bool kQSmem = D > 128;
+  static constexpr int kQRows = 32;
+  static constexpr int kKV = 2 * 2 * kDecTileK * kLd;  // bf16: 2 stages of K and V
+  static constexpr int kSmem = (kKV + (kQSmem ? kQRows * kLd : 0)) * 2;
 };
 
 // packed row r of a kv group: query head hk * groups + r / sq, query r % sq
@@ -790,17 +839,36 @@ __global__ void __launch_bounds__(kDecThreads)
   const int qp0 = ra < R ? p.q_offset + ra % p.Sq : -1;  // -1: a padding row, all masked
   const int qp1 = rbb < R ? p.q_offset + rbb % p.Sq : -1;
 
-  // Q fragments (A of m16n8k16) straight from global memory; padding rows 0
-  const bf16* qa_row = static_cast<const bf16*>(p.q) + packed_row(p, b, hk, min(ra, R - 1)) * D;
-  const bf16* qb_row = static_cast<const bf16*>(p.q) + packed_row(p, b, hk, min(rbb, R - 1)) * D;
-  uint32_t qa[D / 16][4];
+  // Q fragments (A of m16n8k16) straight from global memory into registers,
+  // or (kQSmem) the block's packed rows into shared memory; padding rows 0
+  constexpr bool kQSmem = Decode<D>::kQSmem;
+  static_assert(!kQSmem || RB <= Decode<D>::kQRows, "Q rows past the shared buffer");
+  bf16* sq = sk + Decode<D>::kKV;  // [kQRows][LD], used when kQSmem
+  uint32_t qa[kQSmem ? 1 : D / 16][4];
+  if constexpr (kQSmem) {
+    constexpr int kChunks = D / 8;
+    for (int idx = tid; idx < RB * kChunks; idx += kDecThreads) {
+      const int row = idx / kChunks;
+      const int cc = idx - row * kChunks;
+      const int r = rb * RB + row;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (r < R)
+        v = *reinterpret_cast<const uint4*>(static_cast<const bf16*>(p.q) +
+                                            packed_row(p, b, hk, r) * D + cc * 8);
+      *reinterpret_cast<uint4*>(sq + row * LD + cc * 8) = v;
+    }
+    // the first tile's __syncthreads below orders these stores before the reads
+  } else {
+    const bf16* qa_row = static_cast<const bf16*>(p.q) + packed_row(p, b, hk, min(ra, R - 1)) * D;
+    const bf16* qb_row = static_cast<const bf16*>(p.q) + packed_row(p, b, hk, min(rbb, R - 1)) * D;
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int col = 16 * kk + 2 * t4;
-    qa[kk][0] = ra < R ? *reinterpret_cast<const uint32_t*>(qa_row + col) : 0u;
-    qa[kk][1] = rbb < R ? *reinterpret_cast<const uint32_t*>(qb_row + col) : 0u;
-    qa[kk][2] = ra < R ? *reinterpret_cast<const uint32_t*>(qa_row + col + 8) : 0u;
-    qa[kk][3] = rbb < R ? *reinterpret_cast<const uint32_t*>(qb_row + col + 8) : 0u;
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int col = 16 * kk + 2 * t4;
+      qa[kk][0] = ra < R ? *reinterpret_cast<const uint32_t*>(qa_row + col) : 0u;
+      qa[kk][1] = rbb < R ? *reinterpret_cast<const uint32_t*>(qb_row + col) : 0u;
+      qa[kk][2] = ra < R ? *reinterpret_cast<const uint32_t*>(qa_row + col + 8) : 0u;
+      qa[kk][3] = rbb < R ? *reinterpret_cast<const uint32_t*>(qb_row + col + 8) : 0u;
+    }
   }
 
   // the keys any row of the group can see (positions q_offset .. + sq - 1),
@@ -856,15 +924,28 @@ __global__ void __launch_bounds__(kDecThreads)
     float s[NB][4];
 #pragma unroll
     for (int nb = 0; nb < NB; ++nb) s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    // S += Q K^T over k step kk, from Q's A fragment a
+    auto qk_step = [&](int kk, const uint32_t(&a)[4]) {
 #pragma unroll
       for (int nb = 0; nb < NB; ++nb) {
         uint32_t b0, b1;
         ldmatrix_x2(smem_u32(tk + (kw0 + nb * 8 + (lane & 7)) * LD + 16 * kk +
                              8 * ((lane >> 3) & 1)),
                     b0, b1);
-        mma_m16n8k16(s[nb], qa[kk], b0, b1);
+        mma_m16n8k16(s[nb], a, b0, b1);
+      }
+    };
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      if constexpr (kQSmem) {  // rows rt 16 + g and + 8, columns 16 kk + 2 t4 (+ 8)
+        const bf16* q0 = sq + (rt * 16 + g) * LD + 16 * kk + 2 * t4;
+        const uint32_t a[4] = {*reinterpret_cast<const uint32_t*>(q0),
+                               *reinterpret_cast<const uint32_t*>(q0 + 8 * LD),
+                               *reinterpret_cast<const uint32_t*>(q0 + 8),
+                               *reinterpret_cast<const uint32_t*>(q0 + 8 * LD + 8)};
+        qk_step(kk, a);
+      } else {
+        qk_step(kk, qa[kk]);
       }
     }
     float x0[2 * NB], x1[2 * NB];
@@ -1035,12 +1116,19 @@ cudaError_t launch_decode_rows(const Params& p, int b, int device, cudaStream_t 
   return cudaGetLastError();
 }
 
+// 16, 32 or 64 packed rows a block; at D = 256 at most 32 (64 rows, one
+// key group, would hold S for 64 keys beside the 128 O accumulators and
+// spill), so more packed rows take more row blocks
 template <int D>
 cudaError_t launch_decode(const Params& p, int b, int device, cudaStream_t stream) {
   const int R = (p.H / p.Hk) * p.Sq;
   if (R <= 16) return launch_decode_rows<D, 1>(p, b, device, stream);
-  if (R <= 32) return launch_decode_rows<D, 2>(p, b, device, stream);
-  return launch_decode_rows<D, 4>(p, b, device, stream);
+  if constexpr (D > 128) {
+    return launch_decode_rows<D, 2>(p, b, device, stream);
+  } else {
+    if (R <= 32) return launch_decode_rows<D, 2>(p, b, device, stream);
+    return launch_decode_rows<D, 4>(p, b, device, stream);
+  }
 }
 
 template <int D>
@@ -1081,6 +1169,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
     case 32: err = launch_dim<32>(p, b, is_bf16, device, s); break;
     case 64: err = launch_dim<64>(p, b, is_bf16, device, s); break;
     case 128: err = launch_dim<128>(p, b, is_bf16, device, s); break;
+    case 256: err = launch_dim<256>(p, b, is_bf16, device, s); break;
     default: err = cudaErrorInvalidValue;
   }
   return (int)err;

@@ -6,15 +6,26 @@
 // What bounds it on an H100: the output write. d is tiny (3 for the paper's
 // (f, p, N) features, 2 for the engine's (f, cores) grid), so each output
 // costs about 3d + 6 flops and 4 bytes: at the fit shape (4, 1760, 1760) the
-// 49.6 MB write is about 15 us at 3.35 TB/s, against about 1 us of fp32 math.
+// 49.6 MB write is about 15 us at 3.35 TB/s. The accurate expf (some 20
+// instructions) and the distance make ~40 instructions an output, about
+// 17 us of instruction slots on the card's 132 SMs, so the stores have to
+// stream while that runs.
 //
 // Design:
-// * One block per 32 x 32 output tile of one batch item (grid.z = batch).
-//   The block stages its 32 x rows and 32 y rows (d floats each, d <= 16) in
-//   shared memory and computes ||x||^2 and ||y||^2 once per row. d is not
-//   padded: the 128-lane padding of the TPU kernel has no meaning here.
-// * 32 x 8 threads; a thread writes 4 outputs of one column, so a warp
-//   writes 32 consecutive floats of a row: coalesced along m.
+// * A thread owns 4 consecutive columns j .. j + 3 of one batch item: their
+//   y rows (d floats each, d <= 16, a template argument so that they stay
+//   in registers) and ||y||^2 are loaded once, and the thread walks
+//   up to kRowsPerThread rows, writing one float4 a row with a streaming store
+//   (st.global.cs: the output is not read again by this kernel). A row
+//   whose 4 columns are not 16-byte aligned (m % 4 != 0) or run past m is
+//   written as scalars.
+// * A block is 32 x 8 threads: a warp covers 128 consecutive columns of
+//   one row (512 bytes, coalesced), the 8 warps take rows ty, ty + 8, ...
+//   of a band of 64 rows, or of 32, 16 or 8 where a 64-row band would make
+//   fewer than two blocks an SM (one evaluate predict, 352 x 1,760, makes
+//   84). The x row and ||x||^2 are read by the whole warp at
+//   one address (a broadcast from L1) and computed by each thread; there
+//   is no shared memory and no __syncthreads.
 // * The arithmetic is the plain version's (kernels/ref.py), term by term:
 //   xx + yy - 2 xy, clamped at 0, then expf(-gamma d2), with every sum
 //   taken left to right. __fmul_rn / __fadd_rn keep nvcc from contracting
@@ -26,60 +37,80 @@
 
 namespace {
 
-constexpr int kTile = 32;
-constexpr int kRowsPerPass = 8;
+constexpr int kQuads = 32;  // threads along the columns, 4 columns each
+constexpr int kRowLanes = 8;
+constexpr int kRowsPerThread = 8;
+constexpr int kMinBlocks = 264;  // two an SM of the H100's 132
 constexpr int kMaxD = 16;
 
-__global__ void rbf_gram_kernel(const float* __restrict__ x,
-                                const float* __restrict__ y,
-                                float* __restrict__ out, int n, int m, int d,
-                                float neg_gamma) {
-  __shared__ float sx[kTile][kMaxD + 1];
-  __shared__ float sy[kTile][kMaxD + 1];
-  __shared__ float sxx[kTile];
-  __shared__ float syy[kTile];
+template <int D>
+__device__ __forceinline__ float sq_norm(const float (&v)[D]) {
+  float s = __fmul_rn(v[0], v[0]);
+#pragma unroll
+  for (int c = 1; c < D; ++c) s = __fadd_rn(s, __fmul_rn(v[c], v[c]));
+  return s;
+}
 
+template <int D>
+__global__ void __launch_bounds__(kQuads * kRowLanes)
+    rbf_gram_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                    float* __restrict__ out, int n, int m, int band, float neg_gamma) {
   const int b = blockIdx.z;
-  const int i0 = blockIdx.y * kTile;
-  const int j0 = blockIdx.x * kTile;
-  const float* xb = x + (size_t)b * n * d;
-  const float* yb = y + (size_t)b * m * d;
-  float* ob = out + (size_t)b * n * m;
-  const int tid = threadIdx.y * kTile + threadIdx.x;
-  const int nthreads = kTile * kRowsPerPass;
+  const int j = 4 * (blockIdx.x * kQuads + threadIdx.x);
+  if (j >= m) return;  // no barrier below
+  const int ncol = min(4, m - j);
+  const float* xb = x + (size_t)b * n * D;
+  const float* yb = y + (size_t)b * m * D;
 
-  for (int idx = tid; idx < kTile * d; idx += nthreads) {
-    const int r = idx / d;
-    const int c = idx - r * d;
-    sx[r][c] = (i0 + r < n) ? xb[(size_t)(i0 + r) * d + c] : 0.0f;
-    sy[r][c] = (j0 + r < m) ? yb[(size_t)(j0 + r) * d + c] : 0.0f;
+  float yv[4][D];
+  float yy[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int jj = q < ncol ? j + q : j;  // past m: a copy of column j, never stored
+#pragma unroll
+    for (int c = 0; c < D; ++c) yv[q][c] = yb[(size_t)jj * D + c];
+    yy[q] = sq_norm<D>(yv[q]);
   }
-  __syncthreads();
 
-  if (tid < kTile) {
-    float s = __fmul_rn(sx[tid][0], sx[tid][0]);
-    for (int c = 1; c < d; ++c) s = __fadd_rn(s, __fmul_rn(sx[tid][c], sx[tid][c]));
-    sxx[tid] = s;
-  } else if (tid < 2 * kTile) {
-    const int r = tid - kTile;
-    float s = __fmul_rn(sy[r][0], sy[r][0]);
-    for (int c = 1; c < d; ++c) s = __fadd_rn(s, __fmul_rn(sy[r][c], sy[r][c]));
-    syy[r] = s;
+  const bool aligned = (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+  const int i_end = min(n, ((int)blockIdx.y + 1) * band);
+  for (int i = blockIdx.y * band + threadIdx.y; i < i_end; i += kRowLanes) {
+    float xv[D];
+#pragma unroll
+    for (int c = 0; c < D; ++c) xv[c] = __ldg(xb + (size_t)i * D + c);
+    const float xx = sq_norm<D>(xv);
+    float k[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      float xy = __fmul_rn(xv[0], yv[q][0]);
+#pragma unroll
+      for (int c = 1; c < D; ++c) xy = __fadd_rn(xy, __fmul_rn(xv[c], yv[q][c]));
+      float d2 = __fsub_rn(__fadd_rn(xx, yy[q]), __fmul_rn(2.0f, xy));
+      d2 = fmaxf(d2, 0.0f);
+      k[q] = expf(__fmul_rn(neg_gamma, d2));
+    }
+    const size_t off = ((size_t)b * n + i) * m + j;
+    if (ncol == 4 && aligned && (off & 3) == 0) {
+      __stcs(reinterpret_cast<float4*>(out + off), make_float4(k[0], k[1], k[2], k[3]));
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (q < ncol) __stcs(out + off + q, k[q]);
+    }
   }
-  __syncthreads();
+}
 
-  const int tx = threadIdx.x;
-  const int j = j0 + tx;
-  if (j >= m) return;
-  for (int r = threadIdx.y; r < kTile; r += kRowsPerPass) {
-    const int i = i0 + r;
-    if (i >= n) break;
-    float xy = __fmul_rn(sx[r][0], sy[tx][0]);
-    for (int c = 1; c < d; ++c) xy = __fadd_rn(xy, __fmul_rn(sx[r][c], sy[tx][c]));
-    float d2 = __fsub_rn(__fadd_rn(sxx[r], syy[tx]), __fmul_rn(2.0f, xy));
-    d2 = fmaxf(d2, 0.0f);
-    ob[(size_t)i * m + j] = expf(__fmul_rn(neg_gamma, d2));
-  }
+template <int D>
+void launch_d(const float* x, const float* y, float* out, int b, int n, int m,
+              float neg_gamma, cudaStream_t stream) {
+  const int col_blocks = (m + 4 * kQuads - 1) / (4 * kQuads);
+  int band = kRowLanes * kRowsPerThread;  // rows a block
+  while (band > kRowLanes &&
+         (int64_t)col_blocks * ((n + band - 1) / band) * b < kMinBlocks)
+    band /= 2;
+  const dim3 block(kQuads, kRowLanes);
+  const dim3 grid(col_blocks, (n + band - 1) / band, b);
+  rbf_gram_kernel<D><<<grid, block, 0, stream>>>(x, y, out, n, m, band, neg_gamma);
 }
 
 }  // namespace
@@ -91,10 +122,18 @@ extern "C" int rbf_gram_launch(const void* x, const void* y, void* out, int b,
                                int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (d < 1 || d > kMaxD) return (int)cudaErrorInvalidValue;
-  dim3 block(kTile, kRowsPerPass);
-  dim3 grid((m + kTile - 1) / kTile, (n + kTile - 1) / kTile, b);
-  rbf_gram_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)y, (float*)out, n, m, d, neg_gamma);
+  if (d < 1 || d > kMaxD || b > 65535) return (int)cudaErrorInvalidValue;
+  const float* xp = static_cast<const float*>(x);
+  const float* yp = static_cast<const float*>(y);
+  float* op = static_cast<float*>(out);
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (d) {
+#define RBF_CASE(D) \
+  case D: launch_d<D>(xp, yp, op, b, n, m, neg_gamma, s); break;
+    RBF_CASE(1) RBF_CASE(2) RBF_CASE(3) RBF_CASE(4) RBF_CASE(5) RBF_CASE(6)
+    RBF_CASE(7) RBF_CASE(8) RBF_CASE(9) RBF_CASE(10) RBF_CASE(11) RBF_CASE(12)
+    RBF_CASE(13) RBF_CASE(14) RBF_CASE(15) RBF_CASE(16)
+#undef RBF_CASE
+  }
   return (int)cudaGetLastError();
 }

@@ -11,8 +11,9 @@ the probabilities from. The plain version is ``ref.flash_attention_ref``;
 
 ``launch_plan`` says which of the kernel's paths a call takes, with its
 tiles, key splits and scratch; it is a pure function of the shapes, so the
-host tests check it. Head dims 96 and 112 are zero-padded to 128, and a
-batch with b*h above 65,535 runs as several launches of whole batch rows.
+host tests check it. Head dims 16, 32, 64, 128 and 256 have kernel
+instances; 96 and 112 are zero-padded to 128, and a batch with b*h above
+65,535 runs as several launches of whole batch rows.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-HEAD_DIMS = (16, 32, 64, 128)  # csrc/flash_attention.cu: flash_attention_launch
+HEAD_DIMS = (16, 32, 64, 128, 256)  # csrc/flash_attention.cu: flash_attention_launch
 # head dims the wrapper zero-pads to a kernel instance: zero columns add
 # nothing to q k^T, give zero output columns, and are cut off again
 PADDED_HEAD_DIMS = {96: 128, 112: 128}
@@ -37,7 +38,7 @@ MAX_LAUNCH_BATCH_HEADS = 65535
 DECODE_BELOW_SQ = 16  # kDecodeBelowSq
 MMA_TILE_Q, MMA_TILE_K = 64, 64  # the bf16 tile kernel: one warpgroup's rows, keys a tile
 DECODE_TILE_K = 64  # kDecTileK
-FMA_TILE_Q, FMA_TILE_K = 64, 32  # the f32 tile kernel
+FMA_TILE_Q, FMA_TILE_K = 64, 32  # the f32 tile kernel (keys a tile halved above d 128)
 H100_SMS = 132
 
 
@@ -69,11 +70,13 @@ def launch_plan(b: int, h: int, hk: int, sq: int, skv: int, d: int, dtype,
     if dtype == torch.float32:
         if sq < DECODE_BELOW_SQ:
             return LaunchPlan("fma_row", 1, 1, 1, ())
-        return LaunchPlan("fma_tile", FMA_TILE_Q, FMA_TILE_K, 1, ())
+        return LaunchPlan("fma_tile", FMA_TILE_Q, FMA_TILE_K if d <= 128 else FMA_TILE_K // 2,
+                          1, ())
     if sq >= DECODE_BELOW_SQ:
         return LaunchPlan("mma_tile", MMA_TILE_Q, MMA_TILE_K, 1, ())
     packed = (h // hk) * sq
-    rows = 16 if packed <= 16 else 32 if packed <= 32 else 64
+    # at d 256 a block takes at most 32 rows (64 would spill registers)
+    rows = 16 if packed <= 16 else 32 if packed <= 32 or d > 128 else 64
     key_tiles = max(1, math.ceil(kv_len / DECODE_TILE_K))
     # at least two blocks an SM where the cache has that many key tiles
     splits = max(1, min(key_tiles, math.ceil(2 * sms / (b * hk))))
@@ -106,6 +109,10 @@ def flash_attention_cuda(
     """q (b, h, sq, d), k/v (b, hk, skv, d), f32 or bf16 CUDA -> out (b, h,
     sq, d) in q's dtype, or (out, lse (b, h, sq) f32, -inf for a fully
     masked row) with ``return_lse``."""
+    d = q.shape[-1]
+    if d not in HEAD_DIMS and d not in PADDED_HEAD_DIMS:
+        raise ValueError(
+            f"flash_attention: head dim {d} not in {HEAD_DIMS} or {tuple(PADDED_HEAD_DIMS)}")
     if q.dtype not in DTYPES:
         raise ValueError(f"flash_attention: dtype {q.dtype} not in {DTYPES}")
     _check("q", q, q.dtype)
@@ -129,9 +136,6 @@ def flash_attention_cuda(
         res = flash_attention_cuda(*padded, scale=scale, return_lse=return_lse, **kw)
         out = (res[0] if return_lse else res)[..., :d].contiguous()
         return (out, res[1]) if return_lse else out
-    if d not in HEAD_DIMS:
-        raise ValueError(
-            f"flash_attention: head dim {d} not in {HEAD_DIMS} or {tuple(PADDED_HEAD_DIMS)}")
     if h > MAX_LAUNCH_BATCH_HEADS:
         raise ValueError(f"flash_attention: {h} heads > {MAX_LAUNCH_BATCH_HEADS}")
     kv_len = skv if kv_len is None else int(kv_len)

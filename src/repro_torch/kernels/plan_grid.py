@@ -2,15 +2,41 @@
 
 ``plan_argmin_cuda``: per row, the first flat index of the masked minimum
 of (w·t)·t^k with t floored. ``pareto_mask_cuda``: per row, the Pareto
-keep-set of (t, e) over the feasible points. The plain versions are
-``ref.plan_argmin_ref`` / ``ref.pareto_mask_ref``; ``ops.py`` dispatches.
+keep-set of (t, e) over the feasible points, by a per-row sort and running
+minimum up to ``PARETO_SORT_SLOTS[-1]`` points a row and by all pairs past
+it (``pareto_plan``). The plain versions are ``ref.plan_argmin_ref`` /
+``ref.pareto_mask_ref``; ``ops.py`` dispatches.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
 
 from repro_torch.kernels import _build
+
+# csrc/plan_grid.cu: the sort kernel's instances, slots a row (32 a lane x 4..32)
+PARETO_SORT_SLOTS = (128, 256, 512, 1024)
+
+
+@dataclass(frozen=True)
+class ParetoPlan:
+    """One ``pareto_mask`` call's path through ``csrc/plan_grid.cu``:
+    "sort" (a warp a row, ``slots`` >= G sort slots) or "pairs" (all
+    pairs, a block a row; ``slots`` 0)."""
+
+    path: str
+    slots: int
+
+
+def pareto_plan(b: int, g: int) -> ParetoPlan:
+    """The path for a (B, G) call: the sort with the fewest slots that hold
+    G, or all pairs past the sort's capacity."""
+    for slots in PARETO_SORT_SLOTS:
+        if g <= slots:
+            return ParetoPlan("sort", slots)
+    return ParetoPlan("pairs", 0)
 
 
 def _check(fn: str, name: str, a: torch.Tensor, dtype, shape) -> None:
@@ -75,6 +101,6 @@ def pareto_mask_cuda(
     _build.launch(
         "pareto_mask", "pareto_mask_launch",
         t.data_ptr(), e.data_ptr(), mask.data_ptr(), out.data_ptr(),
-        b, g, dev, stream,
+        b, g, pareto_plan(b, g).slots, dev, stream,
     )
     return out

@@ -42,6 +42,27 @@ def test_rbf_gram_kernel_matches_plain(cuda, shape):
     torch.testing.assert_close(got, want, rtol=0, atol=2e-6)
 
 
+@pytest.mark.parametrize("d", [1, 3, 16])
+@pytest.mark.parametrize("m", [1, 3, 5, 1761])
+def test_rbf_gram_kernel_takes_ragged_columns(cuda, m, d):
+    """One x row against m columns: m % 4 != 0 leaves a scalar tail, and
+    m = 5 or 1761 puts rows off 16-byte alignment."""
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(m * 17 + d)
+    x = torch.from_numpy(rng.standard_normal((2, 1, d)).astype(np.float32)).to(cuda)
+    y = torch.from_numpy(rng.standard_normal((2, m, d)).astype(np.float32)).to(cuda)
+    before = ops.LAUNCHES["rbf_gram"]
+    got = ops.rbf_gram(x, y, 0.5)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["rbf_gram"] == before + 1
+    torch.testing.assert_close(got, ops.rbf_gram(x, y, 0.5, impl="ref"), rtol=0, atol=2e-6)
+    # and m rows against m columns, every row's alignment in turn
+    xm = y[:, : min(m, 67)]
+    torch.testing.assert_close(ops.rbf_gram(xm, y, 0.5), ops.rbf_gram(xm, y, 0.5, impl="ref"),
+                               rtol=0, atol=2e-6)
+
+
 def test_rbf_gram_kernel_rejects_wide_features(cuda):
     from repro_torch.kernels import ops
 
@@ -87,6 +108,44 @@ def test_pareto_mask_kernel_matches_plain(cuda, b, g):
     got = ops.pareto_mask(*args)
     want = ops.pareto_mask(*args, impl="ref")
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("g", [1, 128, 129, 352, 513, 1024, 1025, 2000])
+def test_pareto_mask_kernel_edge_cases(cuda, g):
+    """Both paths (the sort up to 1,024 points a row, all pairs past it)
+    against the plain version: -0.0 and +0.0 ties in t and in e, exact (t,
+    e) ties, NaN and +-inf, all-infeasible rows."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.plan_grid import pareto_plan
+
+    b = 37
+    rng = np.random.default_rng(g)
+    t = np.round(rng.uniform(-2.0, 2.0, (b, g)), 1).astype(np.float32)  # many t ties
+    e = np.round(rng.uniform(-3.0, 3.0, (b, g)), 1).astype(np.float32)
+    mask = rng.random((b, g)) < 0.9
+    t[rng.random((b, g)) < 0.1] = -0.0  # both zeros, in t and in e
+    t[rng.random((b, g)) < 0.1] = 0.0
+    e[rng.random((b, g)) < 0.1] = -0.0
+    e[rng.random((b, g)) < 0.1] = 0.0
+    if g > 1:
+        t[:, 1], e[:, 1] = t[:, 0], e[:, 0]  # exact (t, e) ties
+        t[1, :2], e[1, :2] = (-0.0, 0.0), (1.0, 1.0)  # the same point once more
+        t[2, :2], e[2, :2] = (0.0, -0.0), (0.5, 0.25)
+    for bad, frac in ((np.nan, 0.03), (np.inf, 0.03), (-np.inf, 0.03)):
+        t[rng.random((b, g)) < frac] = bad
+        e[rng.random((b, g)) < frac] = bad
+    mask[3] = False  # an all-masked row
+    t[4] = np.nan  # an all-NaN feasible row
+    e[5, :] = np.inf
+    args = [torch.from_numpy(a).to(cuda) for a in (t, e, mask)]
+    before = ops.LAUNCHES["pareto_mask"]
+    got = ops.pareto_mask(*args)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["pareto_mask"] == before + 1
+    want = ops.pareto_mask(*args, impl="ref")
+    assert torch.equal(got, want)
+    assert not got[3:6].any() and bool(want.any())
+    assert pareto_plan(b, g).path == ("sort" if g <= 1024 else "pairs")
 
 
 def test_engine_fused_kernel_path_matches_exact(cuda):
@@ -138,6 +197,14 @@ FLASH_CASES = [
     (1, 24, 2, 3, 500, 128, True, None, 400, 403),  # 36 packed rows: a 64-row block
     (1, 24, 2, 8, 130, 64, True, 50, 100, 108),  # 96 packed rows: two row blocks
     (1, 4, 2, 1, 1024, 128, False, 100, 1000, 1001),  # more splits than visible key tiles
+    # head dim 256 at gemma3-12b's 16 heads over 8 kv heads: causal, and its
+    # 1,024-key window with queries at 1020..1099; a decode step past the
+    # window; five rows (the row kernel in f32, decode in bf16)
+    (1, 16, 8, 200, 200, 256, True, None, 0, None),
+    (1, 16, 8, 80, 1100, 256, True, 1024, 1020, None),
+    (1, 16, 8, 1, 1300, 256, True, 1024, 1299, 1300),
+    (2, 4, 2, 5, 40, 256, True, None, 30, 35),
+    (1, 16, 1, 4, 130, 256, True, None, 100, 110),  # 64 packed rows: two 32-row blocks
 ]
 
 
@@ -465,8 +532,9 @@ def test_int8_codec_kernels_take_unaligned_views(cuda):
 # ---------------------------------------------------------------------------
 
 
+@pytest.mark.parametrize("d", [32, 256])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_flash_attention_kernel_under_autograd(cuda, dtype):
+def test_flash_attention_kernel_under_autograd(cuda, dtype, d):
     """Kernel arm against plain arm: the backward recomputes (out, lse)
     through the forward's dispatch, so on the kernel arm it launches the
     kernel a second time and its inputs are the kernel's. f32: out within
@@ -478,8 +546,8 @@ def test_flash_attention_kernel_under_autograd(cuda, dtype):
     dt = getattr(torch, dtype)
     rng = np.random.default_rng(0)
     q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda, dt)
-               for s in ((2, 6, 67, 32), (2, 2, 67, 32), (2, 2, 67, 32)))
-    w = torch.from_numpy(rng.standard_normal((2, 6, 67, 32)).astype(np.float32)).to(cuda)
+               for s in ((2, 6, 67, d), (2, 2, 67, d), (2, 2, 67, d)))
+    w = torch.from_numpy(rng.standard_normal((2, 6, 67, d)).astype(np.float32)).to(cuda)
     grads = {}
     for impl in (None, "ref"):
         leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]

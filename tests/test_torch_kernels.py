@@ -180,6 +180,60 @@ def test_pareto_mask_chunks_rows_like_one_pass(monkeypatch):
     assert torch.equal(ref.pareto_mask_ref(t, e, m), whole)
 
 
+def _signed_zero_ties(b, g, seed):
+    """Coarse values (many t and (t, e) ties), -0.0 beside +0.0 in t and in
+    e, masked points and +-inf."""
+    rng = np.random.default_rng(seed)
+    t = np.round(rng.uniform(-1.0, 1.0, (b, g)), 1).astype(np.float32)
+    e = np.round(rng.uniform(-2.0, 2.0, (b, g)), 1).astype(np.float32)
+    for a in (t, e):
+        a[rng.random((b, g)) < 0.15] = -0.0
+        a[rng.random((b, g)) < 0.15] = 0.0
+    t[:, 1], e[:, 1] = t[:, 0], e[:, 0]  # exact (t, e) ties
+    t[0, :3], e[0, :3] = (-0.0, 0.0, 0.0), (1.0, 0.5, -0.0)
+    t[rng.random((b, g)) < 0.03] = np.inf
+    e[rng.random((b, g)) < 0.03] = -np.inf
+    return t, e, rng.random((b, g)) < 0.85
+
+
+@pytest.mark.parametrize("b,g", [(6, 40), (3, 352)])
+def test_pareto_sort_rule_matches_the_reference_row_by_row(b, g):
+    """The sort-and-running-minimum rule (``engine.pareto_frontier``, and
+    the sort path of csrc/plan_grid.cu) against the reference's pairwise
+    predicate: its plain version and its Pallas kernel in interpret mode,
+    with -0.0 == +0.0 and exact ties keeping the lowest flat index."""
+    from repro.kernels.plan_grid import pareto_mask_pallas
+    from repro_torch.core.engine import pareto_frontier
+
+    t, e, mask = _signed_zero_ties(b, g, seed=b + g)
+    plain = ref.pareto_mask_ref(torch.from_numpy(t), torch.from_numpy(e),
+                                torch.from_numpy(mask)).numpy()
+    pallas = np.asarray(pareto_mask_pallas(jnp.asarray(t), jnp.asarray(e),
+                                           jnp.asarray(mask.astype(np.float32)),
+                                           interpret=True)).astype(bool)
+    np.testing.assert_array_equal(plain, pallas)
+    for r in range(b):
+        frontier = pareto_frontier(np.where(mask[r], t[r], np.inf), e[r])
+        keep = np.zeros(g, bool)
+        keep[[i for (i,) in frontier]] = True
+        np.testing.assert_array_equal(keep, plain[r], err_msg=f"row {r}")
+    assert plain[0, 1] != plain[0, 0] or not plain[0, 0]  # a tie keeps one at most
+
+
+def test_pareto_plan_takes_the_sort_up_to_its_capacity():
+    from repro_torch.kernels.plan_grid import PARETO_SORT_SLOTS, pareto_plan
+
+    assert pareto_plan(10_000, 352) == pareto_plan(1, 352)  # B does not change the path
+    assert (pareto_plan(10_000, 352).path, pareto_plan(10_000, 352).slots) == ("sort", 512)
+    for g, slots in ((1, 128), (128, 128), (129, 256), (256, 256), (513, 1024),
+                     (1024, 1024)):
+        plan = pareto_plan(7, g)
+        assert (plan.path, plan.slots) == ("sort", slots)
+    for g in (1025, 1500, 100_000):
+        assert (pareto_plan(7, g).path, pareto_plan(7, g).slots) == ("pairs", 0)
+    assert PARETO_SORT_SLOTS[-1] == 1024
+
+
 def test_tpow_is_exact_for_the_engine_exponents():
     t = torch.from_numpy(
         np.random.default_rng(0).lognormal(0.0, 3.0, 100_000).astype(np.float32))
@@ -664,8 +718,10 @@ def test_flash_launch_plan_of_every_kernel_case(case, dtype):
     else:
         packed = h // hk * sq
         assert plan.path == "mma_decode" and plan.tile_k == 64
-        # the smallest of 16, 32, 64 rows that holds the packed rows, at most 64
-        assert plan.rows == min(r for r in (16, 32, 64) if r >= min(packed, 64))
+        # the smallest of 16, 32, 64 rows that holds the packed rows, at most
+        # 64 (32 at d 256)
+        cap = 32 if d > 128 else 64
+        assert plan.rows == min(r for r in (16, 32, 64) if r >= min(packed, cap))
         key_tiles = max(1, math.ceil((skv if kv_len is None else kv_len) / 64))
         assert 1 <= plan.splits <= key_tiles
         assert b * hk * plan.splits >= 264 or plan.splits == key_tiles
@@ -688,6 +744,38 @@ def test_flash_launch_plan_at_starcoder2_shapes():
     # SMOKE width (f32) takes the FMA kernels
     assert launch_plan(2, 3, 1, 40, 40, 16, torch.float32).path == "fma_tile"
     assert launch_plan(2, 3, 1, 1, 40, 16, torch.float32).path == "fma_row"
+
+
+def test_flash_launch_plan_at_gemma3_shapes():
+    """Head dim 256 (gemma3-12b: 16 heads over 8 kv heads): the wgmma tiles
+    at prefill, GQA-packed decode with d + 2 scratch columns, and the f32
+    tile kernel's key tile halved to 16."""
+    prefill = launch_plan(1, 16, 8, 4096, 4096, 256, torch.bfloat16)
+    assert (prefill.path, prefill.rows, prefill.tile_k) == ("mma_tile", 64, 64)
+    decode = launch_plan(1, 16, 8, 1, 4096, 256, torch.bfloat16, kv_len=4096)
+    # 2 packed rows a kv group in a 16-row tile; 8 (b, kv head) pairs need
+    # 33 splits for 264 blocks, and the cache has 64 key tiles
+    assert (decode.path, decode.rows, decode.splits) == ("mma_decode", 16, 33)
+    assert decode.scratch_shape == (1, 8, 2, 33, 258)
+    # more packed rows than 32 take 32-row blocks at d 256 (64 at d 128)
+    assert launch_plan(1, 16, 1, 4, 130, 256, torch.bfloat16).rows == 32
+    assert launch_plan(1, 16, 1, 4, 130, 128, torch.bfloat16).rows == 64
+    for d, tile_k in ((256, 16), (128, 32)):
+        plan = launch_plan(1, 16, 8, 40, 40, d, torch.float32)
+        assert (plan.path, plan.rows, plan.tile_k) == ("fma_tile", 64, tile_k)
+    assert launch_plan(1, 16, 8, 3, 40, 256, torch.float32).path == "fma_row"
+
+
+@pytest.mark.parametrize("d", [8, 48, 80, 192, 320])
+def test_flash_attention_refuses_head_dims_without_an_instance(d):
+    """Head dims other than 16, 32, 64, 128, 256 (and 96, 112, padded) raise
+    before anything else is checked or launched."""
+    before = dict(ops.LAUNCHES)
+    q = torch.zeros((1, 2, 4, d))
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_cuda(q, q, q, causal=True, window=None, scale=None, q_offset=0,
+                             kv_len=None)
+    assert dict(ops.LAUNCHES) == before
 
 
 # ---------------------------------------------------------------------------
