@@ -54,6 +54,10 @@ class Characterization:
     def fit_svr(self, **kw) -> svr_mod.SVRParams:
         return svr_mod.fit(self.features, self.times, **kw)
 
+    def cross_validate(self, k: int = 10, **kw):
+        """10-fold CV — paper Table 1 metrics (MAE, PAE)."""
+        return svr_mod.kfold_cv(self.features, self.times, k=k, **kw)
+
 
 def characterize(
     sampler: Sampler,

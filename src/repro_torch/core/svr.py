@@ -9,20 +9,20 @@ We solve the standard ε-SVR dual in the β = α - α* parametrization:
     max_β  -½ βᵀ K β + yᵀ β - ε ‖β‖₁     s.t.  Σβ = 0,  |β_i| ≤ C
 
 with a float64 host active-set method (equality-constrained KKT solves with
-box-bounded duals pinned by identity rows, KKT-driven bind/release). The
-Gram matrix — the compute hotspot — is built on the device by
-``kernels.ops.rbf_gram`` (the Hopper kernel for a CUDA device) and copied
-to the host in float64 for the solve.
+box-bounded duals pinned by identity rows, KKT-driven bind/release),
+optionally polished by a monotone projected proximal-gradient (ISTA) pass
+on the device. The Gram matrix — the compute hotspot — is built on the
+device by ``kernels.ops.rbf_gram`` (the Hopper kernel for a CUDA device)
+and copied to the host in float64 for the solve.
 
 ``fit_many`` stacks many training sets (ragged ones padded with masked
 rows), builds their Gram tensor in ONE ``rbf_gram`` call and solves the
-KKT systems batched over the leading dim. ``fit`` is its B = 1 wrapper.
+KKT systems batched over the leading dim; the ISTA polish (``iters > 0``)
+runs batched over the same float32 Gram. ``fit`` is its B = 1 wrapper.
 Fitted models hold their tensors on the device they were fitted on, and
 ``predict`` / ``predict_many`` / ``predict_each`` evaluate there, many
-models in one Gram call.
-
-The ISTA polish (``iters > 0``), ``kfold_cv`` and ``grid_search`` are not
-ported yet (ROADMAP A2).
+models in one Gram call. ``kfold_cv`` and ``grid_search`` are the paper's
+§3.4 validation (Table 1's MAE and PAE), with the reference's folds.
 """
 
 from __future__ import annotations
@@ -61,6 +61,88 @@ class SVRParams:
     @property
     def device(self) -> torch.device:
         return self.beta.device
+
+
+def _matvec(K: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(B, n, n) @ (B, n) -> (B, n)."""
+    return torch.bmm(K, v[..., None])[..., 0]
+
+
+def _project_sum_zero_box(
+    beta: torch.Tensor, C: torch.Tensor, mask: torch.Tensor, iters: int = 50
+) -> torch.Tensor:
+    """Project each row of beta (B, n) onto {Σβ = 0, |β_i| ≤ C_b}: bisection
+    on λ in clip(β-λ, -C, C). ``mask`` (B, n) marks the real rows of a
+    padded problem: masked-out entries are pinned to 0 and excluded from
+    the Σβ = 0 constraint."""
+    m = mask.to(beta.dtype)
+    Cb = C[:, None]
+    inf = torch.full_like(beta, float("inf"))
+    lo = torch.where(mask, beta, inf).amin(1) - C
+    hi = torch.where(mask, beta, -inf).amax(1) + C
+    for _ in range(iters):
+        mid = 0.5 * (lo + hi)
+        above = (m * torch.clamp(beta - mid[:, None], -Cb, Cb)).sum(1) > 0
+        lo = torch.where(above, mid, lo)
+        hi = torch.where(above, hi, mid)
+    lam = 0.5 * (lo + hi)
+    return m * torch.clamp(beta - lam[:, None], -Cb, Cb)
+
+
+def _ista_refine_batch(
+    K: torch.Tensor,
+    y: torch.Tensor,
+    beta0: torch.Tensor,
+    C: torch.Tensor,
+    eps: torch.Tensor,
+    mask: torch.Tensor,
+    iters: int = 200,
+) -> torch.Tensor:
+    """Monotone proximal-gradient refinement of B warm starts towards the
+    true ε-SVR optimum, batched over K (B, n, n): step 1/λ_max(K) (50 power
+    steps), soft-threshold for ε‖β‖₁, exact projection onto {Σβ=0, |β|≤C,
+    β_pad=0}. Keeps each item's best-objective iterate (ISTA on this
+    near-singular K is descent-stable where FISTA momentum is not)."""
+    m = mask.to(K.dtype)
+    v = m / torch.sqrt(torch.clamp_min(m.sum(1, keepdim=True), 1.0))
+    for _ in range(50):
+        w = _matvec(K, v)
+        v = w / (torch.linalg.vector_norm(w, dim=1, keepdim=True) + 1e-12)
+    step = 0.9 / torch.clamp_min((v * _matvec(K, v)).sum(1), 1e-6)
+
+    def obj(b):
+        return 0.5 * (b * _matvec(K, b)).sum(1) - (y * b).sum(1) + eps * b.abs().sum(1)
+
+    beta = beta0 * m
+    best, best_obj = beta, obj(beta)
+    for _ in range(iters):
+        z = beta - step[:, None] * (_matvec(K, beta) - y)
+        z = torch.sign(z) * torch.clamp_min(z.abs() - (step * eps)[:, None], 0.0)
+        beta = _project_sum_zero_box(z, C, mask)
+        o = obj(beta)
+        take = o < best_obj
+        best = torch.where(take[:, None], beta, best)
+        best_obj = torch.where(take, o, best_obj)
+    return best
+
+
+def _recover_bias_batch(
+    K: torch.Tensor, y: torch.Tensor, beta: torch.Tensor, C: torch.Tensor,
+    eps: torch.Tensor, mask: torch.Tensor,
+) -> torch.Tensor:
+    """KKT, per item: the mean over free SVs (0 < |β| < C) of
+    y_i - (Kβ)_i - sign(β_i)·ε; without free SVs the median of y - Kβ over
+    the real rows (the mean of the two middle values for an even count, as
+    ``jnp.nanmedian``)."""
+    f = _matvec(K, beta)
+    tol = (1e-6 * C)[:, None]
+    a = beta.abs()
+    free = mask & (a > tol) & (a < C[:, None] - tol)
+    cand = y - f - torch.sign(beta) * eps[:, None]
+    n_free = free.sum(1)
+    b_free = torch.where(free, cand, 0.0).sum(1) / torch.clamp_min(n_free, 1)
+    b_fallback = torch.nanquantile(torch.where(mask, y - f, float("nan")), 0.5, dim=1)
+    return torch.where(n_free > 0, b_free, b_fallback)
 
 
 def _active_set_solve_batch(
@@ -260,7 +342,8 @@ def fit_many(
             input size) and raw targets in seconds.
         C / eps: the ε-SVR box bound and tube, in raw-target units.
         gamma: RBF width on the (possibly standardized) feature axes.
-        iters: must be 0 (the ISTA polish is not ported yet).
+        iters: ISTA polish iterations (0 = active-set solution only), on
+            the fit's device over the float32 Gram.
         log_target / standardize: the beyond-paper mode for features
             spanning orders of magnitude (the engine path).
         ridge: base conditioning ridge for the KKT solves.
@@ -273,10 +356,6 @@ def fit_many(
         ``List[SVRParams]`` (``rff.RFFParams`` for RFF-routed sets), aligned
         with ``sets``.
     """
-    if iters != 0:
-        raise NotImplementedError(
-            "the ISTA polish (iters > 0) is not ported yet (ROADMAP A2)"
-        )
     dev = resolve_device(device)
     pairs = [_as_xy(s) for s in sets]
     if not pairs:
@@ -314,6 +393,7 @@ def fit_many(
                 C=C,
                 gamma=gamma,
                 eps=eps,
+                iters=iters,
                 impl=impl,
                 log_target=log_target,
                 standardize=standardize,
@@ -386,14 +466,37 @@ def fit_many(
     # the device; the KKT ladder runs on the host in float64
     with obs.span("svr.fit_exact", cat="svr", batch=B, n_max=n_max):
         Xd = torch.from_numpy(Xp).to(dev)
-        K64 = to_host(ops.rbf_gram(Xd, Xd, gamma, impl=impl)).astype(np.float64)
-        if not mask.all():  # zero the padded Gram rows/cols (pads are not real)
-            K64 *= mask[:, :, None] & mask[:, None, :]
+        K = ops.rbf_gram(Xd, Xd, gamma, impl=impl)
+        K64 = to_host(K).astype(np.float64)
+        ragged = not mask.all()
+        if ragged:  # zero the padded Gram rows/cols (pads are not real)
+            pairs_mask = mask[:, :, None] & mask[:, None, :]
+            K64 *= pairs_mask
         C_s = np.asarray([m[5] for m in metas], np.float64)
         eps_s = np.asarray([m[4] for m in metas], np.float64)
         beta, bias = _solve_dual_ladder(
             K64, np.asarray(Yp, np.float64), C_s, eps_s, mask, ridge
         )
+
+    if iters > 0:
+        if ragged:
+            K = K * torch.from_numpy(pairs_mask).to(dev)
+        Yd = torch.from_numpy(Yp).to(dev)
+        mask_d = torch.from_numpy(mask).to(dev)
+        C_d = torch.from_numpy(C_s.astype(np.float32)).to(dev)
+        eps_d = torch.from_numpy(eps_s.astype(np.float32)).to(dev)
+        beta_r = _ista_refine_batch(
+            K, Yd, torch.from_numpy(beta.astype(np.float32)).to(dev), C_d, eps_d, mask_d,
+            iters=iters,
+        )
+        bias_r = to_host(_recover_bias_batch(K, Yd, beta_r, C_d, eps_d, mask_d)).astype(
+            np.float64)
+        beta = to_host(beta_r).astype(np.float64)
+        # only accept the polished bias where it stays sane (the polish can't
+        # worsen the dual objective, but bias recovery on a degenerate free
+        # set can); otherwise keep the active-set KKT bias
+        sane = np.isfinite(bias_r) & (np.abs(bias_r - bias) <= 1.0)
+        bias = np.where(sane, bias_r, bias)
 
     models = []
     for i in range(B):
@@ -528,3 +631,79 @@ def pae_from_pred(pred, y) -> float:
 def pae(params: SVRParams, x, y) -> float:
     """Percentage absolute error (paper Table 1 metric)."""
     return pae_from_pred(predict(params, x), y)
+
+
+def mae(params: SVRParams, x, y) -> float:
+    """Mean absolute error of ``predict`` against y (float32, on the model's
+    device)."""
+    pred = predict(params, x)
+    if not isinstance(pred, torch.Tensor):  # an RFF model predicts on the host
+        pred = torch.from_numpy(np.asarray(pred, np.float32))
+    return float(torch.mean(torch.abs(pred - _queries(y, pred.device))))
+
+
+def kfold_cv(
+    x: np.ndarray,
+    y: np.ndarray,
+    *,
+    k: int = 10,
+    C: float = 10e3,
+    gamma: float = 0.5,
+    eps: float = 0.01,
+    iters: int = 0,
+    seed: int = 0,
+    log_target: bool = False,
+    standardize: bool = False,
+    device: DeviceLike = None,
+):
+    """Paper §3.4: k-fold cross validation, returns mean (MAE, PAE).
+
+    The folds are ``np.array_split`` of ``np.random.default_rng(seed)``'s
+    permutation, as in the reference; each fold fits with ``fit`` on
+    ``device`` (``None``: the CUDA device) and scores its held-out samples.
+    """
+    dev = resolve_device(device)
+    x = np.asarray(x, np.float32)
+    y = np.asarray(y, np.float32)
+    n = x.shape[0]
+    folds = np.array_split(np.random.default_rng(seed).permutation(n), k)
+    maes, paes = [], []
+    for i in range(k):
+        test_idx = folds[i]
+        train_idx = np.concatenate([folds[j] for j in range(k) if j != i])
+        m = fit(
+            x[train_idx],
+            y[train_idx],
+            C=C,
+            gamma=gamma,
+            eps=eps,
+            iters=iters,
+            log_target=log_target,
+            standardize=standardize,
+            device=dev,
+        )
+        maes.append(mae(m, x[test_idx], y[test_idx]))
+        paes.append(pae(m, x[test_idx], y[test_idx]))
+    return float(np.mean(maes)), float(np.mean(paes))
+
+
+def grid_search(
+    x,
+    y,
+    *,
+    Cs=(1e2, 1e3, 10e3),
+    gammas=(0.1, 0.5, 1.0),
+    eps: float = 0.01,
+    k: int = 5,
+    iters: int = 0,
+    device: DeviceLike = None,
+):
+    """Paper §3.4's hyper-parameter grid search: the (C, γ) of the lowest CV
+    PAE, the first on a tie."""
+    best = None
+    for C in Cs:
+        for g in gammas:
+            _, p = kfold_cv(x, y, k=k, C=C, gamma=g, eps=eps, iters=iters, device=device)
+            if best is None or p < best[0]:
+                best = (p, C, g)
+    return {"pae": best[0], "C": best[1], "gamma": best[2]}

@@ -174,8 +174,10 @@ def test_auto_route_splits_a_mixed_batch():
 
 def test_unported_options_raise_and_empty_batches_are_empty():
     assert tsvr.fit_many([], device="cpu") == []
-    with pytest.raises(NotImplementedError, match="ISTA"):
-        tsvr.fit_many([_toy_set(np.random.default_rng(0), 8)], iters=5, device="cpu")
+    # the ISTA polish is ported: iters > 0 fits (tests/test_torch_svr_cv.py)
+    (polished,) = tsvr.fit_many([_toy_set(np.random.default_rng(0), 8)], iters=5,
+                                device="cpu")
+    assert np.isfinite(polished.beta.numpy()).all() and np.isfinite(polished.bias)
     with pytest.raises(ValueError, match="unknown fit method"):
         tsvr.fit_many([_toy_set(np.random.default_rng(0), 8)], method="x", device="cpu")
 
