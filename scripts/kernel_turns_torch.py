@@ -7,26 +7,21 @@ time two commits in turns.
 It uses the ``chip_smoke.py`` and ``src/`` of the current directory, which
 may hold an older commit unpacked with ``git archive``: the card's name and
 power limit, the kernel build, then ``rbf_gram`` at the paper loop's and the
-engine's shapes, ``plan_argmin`` at B = 10,000, G = 352 (and the same inputs
-one element off alignment), G = 350 and B = 2,000 and 100,000 (each beside
-``t.amin(1)``, a yardstick of the read rate), and ``pareto_mask`` at B = 10,000,
-G = 352 and past the sort's capacity, each on inputs made here from a fixed
-seed (the same in every
-checkout), checked against the plain version and timed from CUDA-graph
-replays (``chip_smoke._time_ms``), one line each with LABEL. To compare a
-parent with a change, run it in the parent's checkout, the change's, the
-change's again and the parent's, in one call. It exits non-zero without a
-CUDA device and outside a checkout.
+engine's shapes, ``plan_argmin`` at B = 10,000, G = 352 and 350 (each beside
+``t.amin(1)``, a yardstick of the read rate), and ``pareto_mask`` at
+B = 10,000, G = 352 and past the sort's capacity, each on inputs made here
+from a fixed seed (the same in every checkout), checked against the plain
+version and timed from CUDA-graph replays (``chip_smoke._time_ms``), one
+line each with LABEL. To compare a parent with a change, run it in the
+parent's checkout, the change's, the change's again and the parent's, in
+one call. It exits non-zero without a CUDA device and outside a checkout.
 """
 
 import os
 import sys
 
 RBF_SHAPES = ((4, 1760, 1760, 3), (20, 352, 352, 2), (1, 352, 1760, 3))
-# (B, G, offset): the engine's round, off alignment, G % 4 != 0, and B
-# from a small round to ten rounds' worth (aligned and not: both paths)
-ARGMIN_SHAPES = ((10_000, 352, 0), (10_000, 352, 1), (10_000, 350, 0), (2_000, 352, 0),
-                 (100_000, 352, 0), (100_000, 352, 1))
+ARGMIN_SHAPES = ((10_000, 352), (10_000, 350))  # the engine's round; G % 4 != 0
 PARETO_SHAPES = ((10_000, 352), (200, 1500))
 SEED = 17
 
@@ -73,26 +68,19 @@ def main(argv=None) -> int:
         print(f"[turn {label}] rbf_gram b={b} n={n} m={m} d={d}: {ms:.5f} ms (max |err| "
               f"{err:.3g}) on {kind}", flush=True)
     arng = np.random.default_rng(SEED + 1)  # the other kernels' inputs stay as they were
-    inputs = {}
-    for b, g, offset in ARGMIN_SHAPES:
-        if (b, g) not in inputs:
-            inputs[b, g] = cs._plan_inputs(np, arng, b, g)
-        tn, wn, kn, mn = inputs[b, g]
-        # t and the mask `offset` elements into a larger buffer (off alignment)
-        t = torch.from_numpy(np.concatenate([np.zeros(offset, np.float32), tn.ravel()])).to(dev)
-        mask = torch.from_numpy(np.concatenate([np.zeros(offset, bool), mn.ravel()])).to(dev)
-        t, mask = t[offset:].view(b, g), mask[offset:].view(b, g)
-        w, k = torch.from_numpy(wn).to(dev), torch.from_numpy(kn).to(dev)
+    for b, g in ARGMIN_SHAPES:
+        t, w, k, mask = (torch.from_numpy(a).to(dev) for a in cs._plan_inputs(np, arng, b, g))
+
         def argmin(impl=None):
             return ops.plan_argmin(t, w, k, mask, time_floor=TIME_FLOOR, impl=impl)
 
         if not torch.equal(argmin(), argmin("ref")):
-            raise AssertionError(f"plan_argmin {(b, g, offset)}: indices differ")
+            raise AssertionError(f"plan_argmin {(b, g)}: indices differ")
         ms = cs._time_ms(torch, argmin, 200)
         # a yardstick of the card's read rate at this size: one PyTorch
         # reduction over t alone (4 of the 5 bytes a point plan_argmin reads)
         amin_ms = cs._time_ms(torch, lambda: t.amin(1), 200)
-        print(f"[turn {label}] plan_argmin B={b} G={g} offset {offset}: {ms:.5f} ms "
+        print(f"[turn {label}] plan_argmin B={b} G={g}: {ms:.5f} ms "
               f"(indices identical; t.amin(1) {amin_ms:.5f} ms) on {kind}", flush=True)
     for b, g in PARETO_SHAPES:
         t, e, mask = (torch.from_numpy(a).to(dev) for a in _pareto_inputs(np, rng, b, g))

@@ -45,10 +45,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # x, y, out, b, n, m, d, neg_gamma, device, stream
     "rbf_gram_launch": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
-    # t, w, k, mask, out, B, G, time_floor, steps (0: the row kernel), device, stream
-    "plan_argmin_launch": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _P],
-    # B, steps, device -> the persistent grid's blocks (minus a CUDA error)
-    "plan_argmin_blocks": [_I, _I, _I],
+    # t, w, k, mask, out, B, G, time_floor, device, stream
+    "plan_argmin_launch": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
     # t, e, mask, out, B, G, slots (0: all pairs), device, stream
     "pareto_mask_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # q, k, v, o, lse, scratch, scratch elements, b, h, hk, sq, skv, d,

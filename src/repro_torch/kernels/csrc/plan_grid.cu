@@ -7,27 +7,22 @@
 //
 // plan_argmin -- what bounds it on an H100: bytes. It reads t (B, G) f32 and
 // the mask (B, G) u8 once and does about 5 flops a point: at B = 10^4,
-// G = 352 that is 17.6 MB, about 5.3 us at 3.35 TB/s. A lane keeps its
-// first minimum in index order and the warp reduces (value, index) pairs
-// with shuffles; equal values go to the lower index, so the result is the
-// first flat minimum, np.argmin's rule. An all-masked row returns 0. A NaN
-// step time stays NaN through the floor and a feasible NaN metric comes
-// first, at its first index, as torch.argmin and np.argmin order NaN (the
-// plain version and the engine's exact path).
-// Both paths run a persistent grid: as many blocks of kArgminWarps warps as
-// the SMs hold at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor), a
-// warp a row, each warp walking rows row += all warps of the grid, so no
-// second wave of blocks trails the first.
-// plan_argmin_vec_kernel<S> (G % 4 == 0, G <= 128 S, t 16-byte and the
-// mask 4-byte aligned): a lane covers 4 consecutive points a step, with one
-// float4 load of t and one 32-bit load of 4 mask bytes (S steps a row, 3 at
-// G = 352, the last with 24 active lanes); its w values sit in registers
-// for the whole kernel; all of a row's loads are issued before its
-// reduction (also loading the next row's, as a first design did, took 64
-// registers, 4 blocks an SM, and ran slower on an H100).
-// plan_argmin_rows_kernel (any G, any alignment): a lane walks the row with
-// stride 32, one float and one byte a point. kernels/plan_grid.py:
-// argmin_plan picks the path.
+// G = 352 that is 17.6 MB, about 5.3 us at 3.35 TB/s. Design: one warp per
+// row, a lane walks the row with stride 32 (coalesced loads), keeps its
+// first minimum, and the warp reduces (value, index) pairs with shuffles;
+// equal values go to the lower index, so the result is the first flat
+// minimum, np.argmin's rule. An all-masked row returns 0. A NaN step time
+// stays NaN through the floor and a feasible NaN metric comes first, at its
+// first index, as torch.argmin and np.argmin order NaN (the plain version
+// and the engine's exact path). A point's step time, power and mask byte
+// are loaded before T^k's branches: with the mask test written after them,
+// nvcc issues the mask byte's load only once the branches reconverge, so
+// each step of the row waits for two DRAM round trips one after the other
+// (cuobjdump -sass for sm_90a). The grid is persistent: as many blocks as
+// the SMs hold at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor, 8
+// an SM on an H100), each warp walking rows, so no second wave of blocks
+// trails the first (one block per 8 rows takes 1,250 blocks at B = 10^4,
+// 194 past the 1,056 the SMs hold).
 //
 // pareto_mask -- what bounds it on an H100: bytes. Its t, e, mask and
 // keep-set are 10 bytes a point, 35 MB at B = 10^4, G = 352, about 10.5 us
@@ -80,8 +75,7 @@
 
 namespace {
 
-constexpr int kArgminWarps = 8;    // warps a block, both plan_argmin paths
-constexpr int kArgminMaxSteps = 8;  // vector path: 4 x 32 x 8 = 1,024 points a row
+constexpr int kWarpsPerBlock = 8;
 constexpr int kParetoThreads = 256;
 constexpr int kParetoTile = 1024;
 constexpr int kSortWarps = 4;  // rows a block of the sort path
@@ -105,107 +99,42 @@ __device__ __forceinline__ bool argmin_before(float v, int i, float b, int bi) {
   return v < b;
 }
 
-// one point of the objective: the floor (clamp_min's rule, not fmaxf's: a
-// NaN step time stays NaN), then (w T) T^k, +inf where masked
-__device__ __forceinline__ float plan_metric(float t, float w, float kr, bool feasible,
-                                             float time_floor) {
-  const float tt = t < time_floor ? time_floor : t;
-  const float metric = __fmul_rn(__fmul_rn(w, tt), tpow(tt, kr));
-  return feasible ? metric : INFINITY;
-}
-
-__device__ __forceinline__ void take_first_min(float v, int g, float& best, int& best_idx) {
-  if (argmin_before(v, g, best, best_idx)) {
-    best = v;
-    best_idx = g;
-  }
-}
-
-// lane 0 gets the warp's first minimum; every point of an all-masked row is
-// +inf, so index 0 comes first
-__device__ __forceinline__ int warp_first_min(float best, int best_idx) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ob = __shfl_down_sync(0xffffffffu, best, off);
-    const int oi = __shfl_down_sync(0xffffffffu, best_idx, off);
-    take_first_min(ob, oi, best, best_idx);
-  }
-  return best_idx;
-}
-
-// the two paths share one parameter list, so that a table of kernels serves
-// the occupancy query and the launch
-__global__ void __launch_bounds__(kArgminWarps * 32)
-    plan_argmin_rows_kernel(const void* __restrict__ t_, const void* __restrict__ w_,
-                            const float* __restrict__ k, const void* __restrict__ mask_,
-                            int32_t* __restrict__ out, int B, int G, float time_floor) {
-  const float* t = (const float*)t_;
-  const float* w = (const float*)w_;
-  const uint8_t* mask = (const uint8_t*)mask_;
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+    plan_argmin_kernel(const float* __restrict__ t, const float* __restrict__ w,
+                       const float* __restrict__ k, const uint8_t* __restrict__ mask,
+                       int32_t* __restrict__ out, int B, int G, float time_floor) {
   const int lane = threadIdx.x & 31;
-  const int stride = gridDim.x * kArgminWarps;
-  for (int row = blockIdx.x * kArgminWarps + threadIdx.x / 32; row < B; row += stride) {
+  const int stride = gridDim.x * kWarpsPerBlock;
+  for (int row = blockIdx.x * kWarpsPerBlock + threadIdx.x / 32; row < B; row += stride) {
     const float kr = k[row];
     const float* tr = t + (size_t)row * G;
     const uint8_t* mr = mask + (size_t)row * G;
     float best = INFINITY;
     int best_idx = G;  // a lane with no point (lane >= G) loses to any index
-    for (int g = lane; g < G; g += 32)
-      take_first_min(plan_metric(tr[g], w[g], kr, mr[g] != 0, time_floor), g, best,
-                     best_idx);
-    best_idx = warp_first_min(best, best_idx);
-    if (lane == 0) out[row] = best_idx;
-  }
-}
-
-// S steps of 128 points a row; t and w as float4, the mask as 4 bytes a word
-template <int S>
-__global__ void __launch_bounds__(kArgminWarps * 32)
-    plan_argmin_vec_kernel(const void* __restrict__ t_, const void* __restrict__ w_,
-                           const float* __restrict__ k, const void* __restrict__ mask_,
-                           int32_t* __restrict__ out, int B, int G, float time_floor) {
-  const float4* t = (const float4*)t_;
-  const float4* w = (const float4*)w_;
-  const uint32_t* mask = (const uint32_t*)mask_;
-  const int lane = threadIdx.x & 31;
-  const int g4 = G >> 2;  // float4s (and mask words) a row
-  const int stride = gridDim.x * kArgminWarps;
-  float4 wv[S];
-#pragma unroll
-  for (int s = 0; s < S; ++s) {
-    const int q = 32 * s + lane;
-    wv[s] = q < g4 ? w[q] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  }
-  for (int row = blockIdx.x * kArgminWarps + threadIdx.x / 32; row < B; row += stride) {
-    // the row's loads, streaming (read once), all issued before any is used;
-    // the lane covers float4 (and mask word) 32 s + lane of step s
-    const float kr = k[row];
-    float4 tv[S];
-    uint32_t mv[S];
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-      const int q = 32 * s + lane;
-      if (q < g4) {
-        tv[s] = __ldcs(t + (size_t)row * g4 + q);
-        mv[s] = __ldcs(mask + (size_t)row * g4 + q);
+    for (int g = lane; g < G; g += 32) {
+      // all three loads before T^k's branches (see the note at the top)
+      const float tr_g = tr[g];
+      const float w_g = w[g];
+      const bool feasible = mr[g] != 0;
+      // clamp_min's rule, not fmaxf's: a NaN step time stays NaN
+      const float tt = tr_g < time_floor ? time_floor : tr_g;
+      const float e = __fmul_rn(w_g, tt);
+      const float metric = __fmul_rn(e, tpow(tt, kr));
+      const float v = feasible ? metric : INFINITY;
+      if (argmin_before(v, g, best, best_idx)) {
+        best = v;
+        best_idx = g;
       }
     }
-    float best = INFINITY;
-    int best_idx = G;
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-      const int q = 32 * s + lane;
-      if (q < g4) {  // the lane's points 4q .. 4q + 3, in index order
-        const float ts[4] = {tv[s].x, tv[s].y, tv[s].z, tv[s].w};
-        const float ws[4] = {wv[s].x, wv[s].y, wv[s].z, wv[s].w};
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          take_first_min(plan_metric(ts[j], ws[j], kr, ((mv[s] >> (8 * j)) & 0xffu) != 0u,
-                                     time_floor),
-                         4 * q + j, best, best_idx);
+    for (int off = 16; off > 0; off >>= 1) {
+      const float ob = __shfl_down_sync(0xffffffffu, best, off);
+      const int oi = __shfl_down_sync(0xffffffffu, best_idx, off);
+      if (argmin_before(ob, oi, best, best_idx)) {
+        best = ob;
+        best_idx = oi;
       }
     }
-    best_idx = warp_first_min(best, best_idx);
+    // every point of an all-masked row is +inf, so index 0 comes first
     if (lane == 0) out[row] = best_idx;
   }
 }
@@ -411,58 +340,34 @@ __global__ void __launch_bounds__(kSortWarps * 32, R > 16 ? 1 : 6)
   for (int g = lane; g < G; g += 32) orow[g] = s_keep[warp][g];
 }
 
-using ArgminKernel = void (*)(const void*, const void*, const float*, const void*,
-                             int32_t*, int, int, float);
-// by steps: the row kernel at 0, the vector kernel of that many steps above
-const ArgminKernel kArgminKernels[kArgminMaxSteps + 1] = {
-    plan_argmin_rows_kernel,   plan_argmin_vec_kernel<1>, plan_argmin_vec_kernel<2>,
-    plan_argmin_vec_kernel<3>, plan_argmin_vec_kernel<4>, plan_argmin_vec_kernel<5>,
-    plan_argmin_vec_kernel<6>, plan_argmin_vec_kernel<7>, plan_argmin_vec_kernel<8>};
-
 }  // namespace
 
-// The persistent grid of one plan_argmin path (steps 0: the row kernel;
-// 1 .. kArgminMaxSteps: the vector kernel of that many steps): the blocks
-// the device's SMs hold at once, cached a (device, path), and no more than
-// the B rows need. Returns the block count, or minus a cudaError_t.
-extern "C" int plan_argmin_blocks(int B, int steps, int device) {
-  constexpr int kDevices = 64;
-  static int resident[kDevices][kArgminMaxSteps + 1];  // 0: not queried yet
-  if (steps < 0 || steps > kArgminMaxSteps || device < 0 || device >= kDevices)
-    return -(int)cudaErrorInvalidValue;
-  int& blocks = resident[device][steps];
-  if (blocks == 0) {
-    int per_sm = 0, sms = 0;
-    cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, kArgminKernels[steps], kArgminWarps * 32, 0);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    if (err != cudaSuccess) return -(int)err;
-    blocks = per_sm * sms;
-  }
-  const int needed = (B + kArgminWarps - 1) / kArgminWarps;
-  return needed < blocks ? needed : blocks;
-}
-
-// t, mask (B, G); w (G,); k (B,); out (B,) int32. `steps` picks the path: 0
-// the row kernel (any G and alignment), 1 .. 8 the vector kernel with that
-// many steps of 128 points (G % 4 == 0, G <= 128 steps, t and w 16-byte and
-// the mask 4-byte aligned). Returns cudaGetLastError().
+// t, mask (B, G); w (G,); k (B,); out (B,) int32, any G and alignment. The
+// grid is the blocks the device's SMs hold at once, queried once a device
+// (so that no query runs inside a CUDA-graph capture) and no more than the
+// B rows need. Returns a cudaError_t.
 extern "C" int plan_argmin_launch(const void* t, const void* w, const void* k,
                                   const void* mask, void* out, int B, int G,
-                                  float time_floor, int steps, int device, void* stream) {
+                                  float time_floor, int device, void* stream) {
+  constexpr int kDevices = 64;
+  static int resident[kDevices];  // 0: not queried yet
+  if (device < 0 || device >= kDevices) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (steps > 0 && (G % 4 != 0 || G > 128 * steps)) return (int)cudaErrorInvalidValue;
-  const int blocks = plan_argmin_blocks(B, steps, device);
-  if (blocks < 0) return -blocks;
-  const float* kp = (const float*)k;
-  int32_t* op = (int32_t*)out;
-  void* args[] = {(void*)&t, (void*)&w, (void*)&kp, (void*)&mask, (void*)&op,
-                  (void*)&B, (void*)&G, (void*)&time_floor};
-  err = cudaLaunchKernel((const void*)kArgminKernels[steps], dim3(blocks),
-                         dim3(kArgminWarps * 32), args, 0, (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
+  if (resident[device] == 0) {
+    int per_sm = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, plan_argmin_kernel,
+                                                        kWarpsPerBlock * 32, 0);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return (int)err;
+    resident[device] = per_sm * sms;
+  }
+  const int needed = (B + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  const int blocks = needed < resident[device] ? needed : resident[device];
+  plan_argmin_kernel<<<blocks, kWarpsPerBlock * 32, 0, (cudaStream_t)stream>>>(
+      (const float*)t, (const float*)w, (const float*)k, (const uint8_t*)mask,
+      (int32_t*)out, B, G, time_floor);
   return (int)cudaGetLastError();
 }
 

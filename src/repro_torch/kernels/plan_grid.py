@@ -1,12 +1,11 @@
 """Wrappers of the Hopper planning-grid kernels (``csrc/plan_grid.cu``).
 
 ``plan_argmin_cuda``: per row, the first flat index of the masked minimum
-of (w·t)·t^k with t floored, by a vector kernel (4 points a lane a step)
-where G and the inputs' alignment allow it and a row kernel otherwise
-(``argmin_plan``). ``pareto_mask_cuda``: per row, the Pareto
-keep-set of (t, e) over the feasible points, by a per-row sort and running
-minimum up to ``PARETO_SORT_SLOTS[-1]`` points a row and by all pairs past
-it (``pareto_plan``). The plain versions are ``ref.plan_argmin_ref`` /
+of (w·t)·t^k with t floored, a warp a row on a persistent grid.
+``pareto_mask_cuda``: per row, the Pareto keep-set of (t, e) over the
+feasible points, by a per-row sort and running minimum up to
+``PARETO_SORT_SLOTS[-1]`` points a row and by all pairs past it
+(``pareto_plan``). The plain versions are ``ref.plan_argmin_ref`` /
 ``ref.pareto_mask_ref``; ``ops.py`` dispatches.
 """
 
@@ -20,32 +19,6 @@ from repro_torch.kernels import _build
 
 # csrc/plan_grid.cu: the sort kernel's instances, slots a row (32 a lane x 4..32)
 PARETO_SORT_SLOTS = (128, 256, 512, 1024)
-# csrc/plan_grid.cu: the vector argmin kernel's instances, 1..8 steps of 128
-# points a row (4 a lane); its w values stay in registers
-ARGMIN_STEP_POINTS = 128
-ARGMIN_MAX_STEPS = 8
-
-
-@dataclass(frozen=True)
-class ArgminPlan:
-    """One ``plan_argmin`` call's path through ``csrc/plan_grid.cu``:
-    "vector" (``steps`` float4 steps a row) or "rows" (a float and a mask
-    byte a point; ``steps`` 0)."""
-
-    path: str
-    steps: int
-
-
-def argmin_plan(t: torch.Tensor, w: torch.Tensor, mask: torch.Tensor) -> ArgminPlan:
-    """The path for a call: the vector kernel where G % 4 == 0, G fits its
-    registers (``ARGMIN_MAX_STEPS`` steps) and t and w start on 16 bytes and
-    the mask on 4 (so that every row does), the row kernel otherwise."""
-    g = t.shape[-1]
-    steps = -(-g // ARGMIN_STEP_POINTS)
-    if (g % 4 == 0 and steps <= ARGMIN_MAX_STEPS and t.data_ptr() % 16 == 0
-            and w.data_ptr() % 16 == 0 and mask.data_ptr() % 4 == 0):
-        return ArgminPlan("vector", steps)
-    return ArgminPlan("rows", 0)
 
 
 @dataclass(frozen=True)
@@ -105,7 +78,7 @@ def plan_argmin_cuda(
     _build.launch(
         "plan_argmin", "plan_argmin_launch",
         t.data_ptr(), w.data_ptr(), k.data_ptr(), mask.data_ptr(),
-        out.data_ptr(), b, g, float(time_floor), argmin_plan(t, w, mask).steps, dev, stream,
+        out.data_ptr(), b, g, float(time_floor), dev, stream,
     )
     return out
 
@@ -132,12 +105,3 @@ def pareto_mask_cuda(
         b, g, pareto_plan(b, g).slots, dev, stream,
     )
     return out
-
-
-def argmin_blocks(b: int, plan: ArgminPlan, device: int) -> int:
-    """The persistent grid of a (B rows, ``plan``) call on ``device``: the
-    blocks the card's SMs hold at once, at most what B rows need."""
-    n = _build.library().plan_argmin_blocks(b, plan.steps, device)
-    if n < 0:
-        raise RuntimeError(f"plan_argmin: occupancy query failed with CUDA error {-n}")
-    return n

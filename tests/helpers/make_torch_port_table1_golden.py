@@ -10,7 +10,7 @@ drives, and the cross-validation pieces around it:
 * ``grid_search``: ``svr.grid_search`` (its default grid, k = 5) on the
   quick blackscholes characterization of ``tests/conftest.py``
   (``Node(seed=3)``, every other frequency, odd core counts, inputs 1, 3,
-  5);
+  5), whose grid the file records as ``quick_grid``;
 * ``fit_many_ista``: ``svr.fit_many(iters=50)`` on the four apps' quick
   characterizations (a fresh ``Node(seed=42)``, the same reduced grid), and
   each model's predictions over the 11 x 32 (f, p) grid at input 3.
@@ -35,15 +35,16 @@ SEED = 42
 GRID_SEARCH_SEED = 3
 ISTA_ITERS = 50
 PREDICT_INPUT = 3.0
+# tests/conftest.py's blackscholes_ch grid
+QUICK_GRID = {"freqs": [float(f) for f in FREQ_GRID[::2]], "cores": list(range(1, 33, 2)),
+              "input_sizes": [1.0, 3.0, 5.0]}
 OUT = os.path.join(
     os.path.dirname(__file__), "..", "data", "torch_port_table1_golden.json"
 )
 
 
 def quick_characterization(node, app):
-    return characterize.characterize(
-        characterize.NodeSampler(node, app), app, freqs=FREQ_GRID[::2],
-        cores=range(1, 33, 2), input_sizes=(1.0, 3.0, 5.0))
+    return characterize.characterize(characterize.NodeSampler(node, app), app, **QUICK_GRID)
 
 
 def predict_grid():
@@ -84,6 +85,7 @@ def main() -> int:
                   "(f, p) grid at input 3",
         "apps": list(APPS),
         "seed": SEED,
+        "quick_grid": QUICK_GRID,
         "table1": table1,
         "grid_search": {"seed": GRID_SEARCH_SEED, **gs},
         "fit_many_ista": {"iters": ISTA_ITERS, "input_size": PREDICT_INPUT,

@@ -71,20 +71,14 @@ def test_rbf_gram_kernel_rejects_wide_features(cuda):
         ops.rbf_gram(x, x, 0.5)
 
 
-def _argmin_steps(g):
-    """The vector kernel's steps for a well-aligned (B, g) call, 0 for the rows kernel."""
-    return -(-g // 128) if g % 4 == 0 and g <= 1024 else 0
-
-
-# both paths: G % 4 == 0 (vector) and not (rows), G < 32, the engine's 352,
-# 1,024 (the vector path's last instance) and 1,028 past it, B = 1, and
-# B = 10,007 (several rows a warp of the persistent grid, not a multiple)
+# G % 4 == 0 and not, G < 32, the engine's 352, 1,024 and 1,028, B = 1,
+# and B = 10,007 (several rows a warp of the persistent grid, not a multiple
+# of its warps)
 @pytest.mark.parametrize("b,g", [(1, 7), (33, 352), (300, 130), (300, 128), (1, 352),
                                  (17, 12), (17, 4), (5, 1), (10_007, 352), (10_007, 350),
                                  (64, 1024), (64, 1028)])
 def test_plan_argmin_kernel_matches_plain(cuda, b, g):
     from repro_torch.kernels import ops
-    from repro_torch.kernels.plan_grid import argmin_plan
 
     rng = np.random.default_rng(b + g)
     t = rng.lognormal(0.0, 1.0, (b, g)).astype(np.float32)
@@ -98,7 +92,6 @@ def test_plan_argmin_kernel_matches_plain(cuda, b, g):
     t[2::7, :] = np.nan
     mask[2::7, :] = True  # all-NaN feasible rows
     args = [torch.from_numpy(a).to(cuda) for a in (t, w, k, mask)]
-    assert argmin_plan(args[0], args[1], args[3]).steps == _argmin_steps(g)
     before = ops.LAUNCHES["plan_argmin"]
     got = ops.plan_argmin(*args, time_floor=TIME_FLOOR)
     want = ops.plan_argmin(*args, time_floor=TIME_FLOOR, impl="ref")
@@ -108,11 +101,10 @@ def test_plan_argmin_kernel_matches_plain(cuda, b, g):
 
 
 @pytest.mark.parametrize("g", [352, 128])
-def test_plan_argmin_kernel_takes_unaligned_inputs_on_the_rows_path(cuda, g):
+def test_plan_argmin_kernel_takes_unaligned_inputs(cuda, g):
     """t four bytes and the mask one byte past their alignment (slices of a
-    larger buffer): the rows kernel, with the plain version's indices."""
+    larger buffer): the plain version's indices, and the aligned copy's."""
     from repro_torch.kernels import ops
-    from repro_torch.kernels.plan_grid import argmin_plan
 
     b = 257
     rng = np.random.default_rng(g)
@@ -124,14 +116,11 @@ def test_plan_argmin_kernel_takes_unaligned_inputs_on_the_rows_path(cuda, g):
     k = torch.from_numpy(rng.choice([0.0, 1.0, 2.0], b).astype(np.float32)).to(cuda)
     mask[::3] = False
     assert t.is_contiguous() and t.data_ptr() % 16 == 4
-    assert argmin_plan(t, w, mask).path == "rows"
     got = ops.plan_argmin(t, w, k, mask, time_floor=TIME_FLOOR)
     want = ops.plan_argmin(t, w, k, mask, time_floor=TIME_FLOOR, impl="ref")
     assert torch.equal(got, want)
-    # and the same values, aligned, on the vector path
-    t2, mask2 = t.clone(), mask.clone()
-    assert argmin_plan(t2, w, mask2).path == "vector"
-    assert torch.equal(ops.plan_argmin(t2, w, k, mask2, time_floor=TIME_FLOOR), want)
+    assert torch.equal(
+        ops.plan_argmin(t.clone(), w, k, mask.clone(), time_floor=TIME_FLOOR), want)
 
 
 @pytest.mark.parametrize("b,g", [(1, 12), (17, 352), (3, 1500)])

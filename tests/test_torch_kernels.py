@@ -234,24 +234,6 @@ def test_pareto_plan_takes_the_sort_up_to_its_capacity():
     assert PARETO_SORT_SLOTS[-1] == 1024
 
 
-def test_argmin_plan_takes_the_vector_kernel_where_g_and_alignment_allow():
-    from repro_torch.kernels.plan_grid import ARGMIN_MAX_STEPS, ARGMIN_STEP_POINTS, argmin_plan
-
-    def plan(b, g, offset=0):
-        t = torch.zeros(b * g + 4)[offset: offset + b * g].view(b, g)
-        mask = torch.zeros(b * g + 4, dtype=torch.bool)[offset: offset + b * g].view(b, g)
-        return argmin_plan(t, torch.zeros(1, g), mask)
-
-    assert ARGMIN_STEP_POINTS * ARGMIN_MAX_STEPS == 1024
-    for g, steps in ((4, 1), (128, 1), (132, 2), (352, 3), (1024, 8)):
-        assert (plan(3, g).path, plan(3, g).steps) == ("vector", steps)
-    assert plan(10_000, 352) == plan(1, 352)  # B does not change the path
-    for g in (1, 7, 350, 1028, 2000):
-        assert (plan(3, g).path, plan(3, g).steps) == ("rows", 0)
-    # t four bytes past 16-byte alignment (and the mask one byte past 4): rows
-    assert plan(3, 352, offset=1) == plan(3, 350)
-
-
 def test_tpow_is_exact_for_the_engine_exponents():
     t = torch.from_numpy(
         np.random.default_rng(0).lognormal(0.0, 3.0, 100_000).astype(np.float32))

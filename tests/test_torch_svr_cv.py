@@ -14,6 +14,10 @@ relative on ``tests/test_svr_batch.py``'s polish case, held to the
 tolerances of ``tests/test_torch_svr.py``.
 """
 
+import importlib.util
+import json
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -23,6 +27,8 @@ from repro.core import svr as jsvr
 from repro_torch.core import characterize as tch
 from repro_torch.core import svr as tsvr
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TABLE1_GOLDEN = os.path.join(REPO, "tests", "data", "torch_port_table1_golden.json")
 ENGINE_KW = dict(gamma=0.5, standardize=True, log_target=True, eps=1e-4)
 CV_REL = 1e-4
 BETA_REL = 1e-3  # of max |beta|
@@ -101,6 +107,23 @@ def test_cross_validate_matches_reference(blackscholes_ch):
     got = port_ch.cross_validate(k=4, device="cpu")
     assert got == pytest.approx(want, rel=CV_REL)
     assert port_ch.cross_validate(k=4, seed=1, device="cpu") != got  # other folds
+
+
+def test_table1_golden_quick_grid_is_the_conftests(blackscholes_ch):
+    """``chip_smoke.py`` builds its quick sets from the golden's
+    ``quick_grid``: on the golden's grid-search node it gives the conftest's
+    blackscholes set, sample for sample."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    from repro_torch.core.node_sim import Node
+
+    with open(TABLE1_GOLDEN) as f:
+        golden = json.load(f)
+    ch = smoke._quick_characterization(
+        Node(seed=golden["grid_search"]["seed"]), "blackscholes", golden["quick_grid"])
+    np.testing.assert_array_equal(ch.features, blackscholes_ch.features)
+    np.testing.assert_array_equal(ch.times, blackscholes_ch.times)
 
 
 def _dual_case(seed, b=3, n=9):
