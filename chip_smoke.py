@@ -45,6 +45,21 @@ Phases (every failure raises; nothing is caught):
    order kernel, plain, plain, kernel, so that run order shows in their
    times; each round's time is printed with the seconds the garbage
    collector ran inside it.
+5b. fleet simulation: python -m repro_torch.fleet on the card (4 nodes;
+   the default run of 32 jobs on the paper's grids, --quick, --quick
+   --horizon 600 --burst 3, --quick --fallback) against
+   tests/data/torch_port_fleet_golden.json (written by the JAX package):
+   the engine scenario's completed jobs equal the golden's, or the first
+   differing placement is a near-tie within NEAR_TIE_REL on the port's own
+   surface and the rest within FLEET_ENERGY_REL of total energy with equal
+   misses; the governor scenarios bit for bit. Each job placed as the
+   golden placed it predicts its energy within FLEET_PRED_REL of the
+   golden's, and a control (the --quick run on a Gram rounded to
+   CONTROL_BITS mantissa bits) must be refused. Its launches of rbf_gram,
+   plan_argmin and pareto_mask are counted on their own and printed by
+   shape; every call is replayed, kernel against plain version, and each
+   kernel is timed on the fleet's own inputs at the smallest and the
+   largest of those shapes.
 6. serve: (a) starcoder2-3b and mamba2-130m at SMOKE width on the card,
    with the kernels, on the JAX package's weights and prompts from
    tests/data/torch_port_serve_golden.npz: prefill logits, every decode
@@ -75,8 +90,8 @@ Phases (every failure raises; nothing is caught):
    scan's forward and the plain SSD VJP at one layer's shape; compression;
    AdamW).
 10. launches: one JSON line with every kernel's launch count on its main
-   path (phases 4-5 for the planning kernels, rbf_gram's in phase 4b
-   beside them, 6b's kernel arms for the
+   path (phases 4, 5 and 5b for the planning kernels, 5b's and rbf_gram's
+   in phase 4b beside them, 6b's kernel arms for the
    serving kernels, phases 8-9's training runs for the codec, each
    counted from 0 just before its path), its error against the plain
    version and its times.
@@ -102,6 +117,18 @@ GOLDEN = os.path.join(HERE, "tests", "data", "torch_port_eval_golden.json")
 SERVE_GOLDEN = os.path.join(HERE, "tests", "data", "torch_port_serve_golden.npz")
 NEAR_TIE_REL = 1e-3
 TABLE1_GOLDEN = os.path.join(HERE, "tests", "data", "torch_port_table1_golden.json")
+FLEET_GOLDEN = os.path.join(HERE, "tests", "data", "torch_port_fleet_golden.json")
+# after a near-tie the schedules part ways; the rest of an engine scenario
+# is held to the golden's total energy within this share (and equal misses)
+FLEET_ENERGY_REL = 0.01
+# a job placed as the golden placed it predicts its energy (the SVR's step
+# time on the port's power fit) within this share of the golden's. On the
+# host the port reads 1.34e-4 against the JAX package; a Gram rounded to
+# CONTROL_BITS mantissa bits (relative 3e-5) keeps every placement of the
+# four runs and reads 2.0e-3 to 4.2e-3 there. See PERF.md for the card's.
+FLEET_PRED_REL = 5e-4
+CONTROL_BITS = 14
+FLEET_KERNELS = ("rbf_gram", "plan_argmin", "pareto_mask")
 # Table 1's (MAE, PAE) on the card against the JAX package on the host,
 # relative. Read on an H100 by scripts/table1_witness_torch.py: the card's
 # Grams (kernel and plain alike, within 6e-8 of the host's) tip one
@@ -180,34 +207,59 @@ BF16_OPS_PER_S = 989e12
 TF32_OPS_PER_S = 495e12
 
 
-def _tally_shapes(module, name: str):
-    """Count the calls of ``module.name`` (a kernel wrapper taking x (b, n,
-    d) and y (b, m, d)) by (b, n, m, d), until ``restore()``; the wrapper
-    and its launch count run as before."""
+def _gram_shape(x, y, *_):
+    """rbf_gram's call shape (b, n, m, d) for x (b, n, d) and y (b, m, d);
+    None for an empty output, which launches nothing."""
+    if x.shape[0] * x.shape[1] * y.shape[1]:
+        return (x.shape[0], x.shape[1], y.shape[1], x.shape[2])
+    return None
+
+
+def _grid_shape(t, *_):
+    """plan_argmin's and pareto_mask's call shape (B, G) for t (B, G)."""
+    return tuple(t.shape) if t.numel() else None
+
+
+def _tally_shapes(module, name: str, shape_of=_gram_shape, calls=None):
+    """Count the calls of ``module.name`` (a kernel wrapper) by
+    ``shape_of(*args)``, until ``restore()``; the wrapper and its launch
+    count run as before. With a list ``calls``, each launching call's
+    (shape, args, kwargs) is appended to it, the tensors cloned."""
     import collections
 
     fn = getattr(module, name)
     tally = collections.Counter()
 
-    def counted(x, y, *args, **kw):
-        if x.shape[0] * x.shape[1] * y.shape[1]:  # an empty output launches nothing
-            tally[(x.shape[0], x.shape[1], y.shape[1], x.shape[2])] += 1
-        return fn(x, y, *args, **kw)
+    def counted(*args, **kw):
+        shape = shape_of(*args)
+        if shape is not None:
+            tally[shape] += 1
+            if calls is not None:
+                calls.append((shape, [a.clone() if hasattr(a, "clone") else a
+                                      for a in args], dict(kw)))
+        return fn(*args, **kw)
 
     setattr(module, name, counted)
     return tally, lambda: setattr(module, name, fn)
 
 
-def _counted(ops, fn):
+def _counted(ops, fn, calls=None):
     """Run ``fn`` with every launch count set to 0 just before; return the
-    counts just after and rbf_gram's calls by shape."""
+    counts just after and the planning kernels' calls by shape. With a dict
+    ``calls``, ``calls[name]`` collects each planning kernel's calls (see
+    ``_tally_shapes``)."""
     ops.reset_launches()
-    shapes, restore = _tally_shapes(ops, "rbf_gram_cuda")
+    tallies = {name: _tally_shapes(ops, f"{name}_cuda", shape_of,
+                                   None if calls is None else calls.setdefault(name, []))
+               for name, shape_of in (("rbf_gram", _gram_shape),
+                                      ("plan_argmin", _grid_shape),
+                                      ("pareto_mask", _grid_shape))}
     try:
         fn()
     finally:
-        restore()
-    return dict(ops.LAUNCHES), shapes
+        for _, restore in tallies.values():
+            restore()
+    return dict(ops.LAUNCHES), {name: tally for name, (tally, _) in tallies.items()}
 
 
 def _stage(name: str, t0: float) -> float:
@@ -308,7 +360,7 @@ def _plan_inputs(np, rng, b, g):
     t[:, 1::8] = t[:, 0::8][:, : t[:, 1::8].shape[1]]  # exact metric ties
     w[:, 1::8] = w[:, 0::8][:, : w[:, 1::8].shape[1]]
     mask[::97] = False  # all-masked rows
-    t[5::89, 100] = np.nan  # NaN step times: the first feasible NaN wins
+    t[5::89, min(100, g - 1)] = np.nan  # NaN step times: the first feasible NaN wins
     t[6::89, :] = np.nan
     return t, w, k, mask
 
@@ -327,47 +379,91 @@ def _pareto_inputs(np, rng, b, g):
     return t, e, mask
 
 
-def phase_kernels(torch, np, kind):
+def _check_rbf(torch, np, rng, kind, b, n, m, d, inputs=None):
+    """One rbf_gram shape: kernel vs plain (within RBF_ATOL), timed beside
+    its bound; on inputs of ``rng``, or on ``inputs`` (x, y, gamma), a
+    call the fleet runs made."""
+    from repro_torch.kernels import ops
+
+    if inputs is None:
+        dev = torch.device(DEVICE)
+        xn, yn = _rbf_inputs(np, rng, b, n, m, d)
+        x = torch.from_numpy(xn).to(dev)
+        y = torch.from_numpy(yn).to(dev)
+        if b == 1:
+            x, y = x[0], y[0]
+        gamma = 0.5
+    else:
+        x, y, gamma = inputs
+    got = ops.rbf_gram(x, y, gamma)
+    want = ops.rbf_gram(x, y, gamma, impl="ref")
+    torch.cuda.synchronize()
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"rbf_gram {(b, n, m, d)}: bad output")
+    err = float((got - want).abs().max())
+    if err > RBF_ATOL:
+        raise AssertionError(f"rbf_gram {(b, n, m, d)}: max |err| {err} > {RBF_ATOL}")
+    ms = _time_ms(torch, lambda: ops.rbf_gram(x, y, gamma), 50)
+    eager = _eager_ms(torch, lambda: ops.rbf_gram(x, y, gamma), 50)
+    plain_ms = _time_ms(torch, lambda: ops.rbf_gram(x, y, gamma, impl="ref"), 10)
+    bound, by = _bound_ms(4.0 * (b * n * d + b * m * d + b * n * m),
+                          b * n * m * (2 * d + 5))
+    print(f"[kernel] rbf_gram b={b} n={n} m={m} d={d}{' (a fleet call)' if inputs else ''}: "
+          f"{ms:.4f} ms "
+          f"(eager calls {eager:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bound * 1e3:.4f} us by {by}, max |err| {err:.3g}) on {kind}",
+          flush=True)
+    return dict(shape=(b, n, m, d), ms=ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by, max_abs_err=err)
+
+
+def _check_plan_argmin(torch, np, rng, kind, b, g, inputs=None):
+    """One plan_argmin shape: kernel vs plain (identical indices), timed
+    beside its bound; on inputs of ``rng``, or on ``inputs`` (t, w, k,
+    mask, time_floor), a call the fleet runs made."""
     from repro_torch.core.engine import TIME_FLOOR
     from repro_torch.kernels import ops
 
-    dev = torch.device("cuda")
+    if inputs is None:
+        dev = torch.device(DEVICE)
+        t, w, k, mask = (torch.from_numpy(a).to(dev) for a in _plan_inputs(np, rng, b, g))
+        time_floor = TIME_FLOOR
+    else:
+        t, w, k, mask, time_floor = inputs
+    got = ops.plan_argmin(t, w, k, mask, time_floor=time_floor)
+    want = ops.plan_argmin(t, w, k, mask, time_floor=time_floor, impl="ref")
+    mism = int((got != want).sum())
+    err = float((got.long() - want.long()).abs().max())
+    if mism:
+        raise AssertionError(f"plan_argmin {(b, g)}: {mism} of {b} rows differ")
+    def kernel():
+        return ops.plan_argmin(t, w, k, mask, time_floor=time_floor)
+
+    ms = _time_ms(torch, kernel, 200)
+    eager = _eager_ms(torch, kernel, 200)
+    plain_ms = _time_ms(
+        torch, lambda: ops.plan_argmin(t, w, k, mask, time_floor=time_floor, impl="ref"), 20)
+    bound, by = _bound_ms(4.0 * b * g + b * g + 4.0 * g + 4.0 * b + 4.0 * b, 5.0 * b * g)
+    print(f"[kernel] plan_argmin B={b} G={g}{' (a fleet call)' if inputs else ''}: "
+          f"{ms:.5f} ms (eager calls {eager:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, bound {bound * 1e3:.4f} us by {by}, {mism} rows "
+          f"differ, {int(mask.any(1).sum())} rows with a feasible point, "
+          f"{int(torch.isnan(t).any(1).sum())} rows with NaN) on {kind}", flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, max_abs_err=err)
+
+
+def phase_kernels(torch, np, kind):
     rng = np.random.default_rng(SEED)
     results = {}
 
     # rbf_gram: the fit (4, 1760, 1760, 3), the engine predict (20, 352, 352, 2)
     # and one evaluate plan's predict (352, 1760, 3); then phase 4b's fold fit
     # (1584, 1584, 3) and fold predict (176, 1584, 3)
-    rbf = []
     table1_rng = np.random.default_rng(SEED + 2)  # the other kernels' inputs stay as they were
-    for (b, n, m, d), shape_rng in (((4, 1760, 1760, 3), rng), ((20, 352, 352, 2), rng),
+    rbf = [_check_rbf(torch, np, shape_rng, kind, *shape)
+           for shape, shape_rng in (((4, 1760, 1760, 3), rng), ((20, 352, 352, 2), rng),
                                     ((1, 352, 1760, 3), rng), ((1, 1584, 1584, 3), table1_rng),
-                                    ((1, 176, 1584, 3), table1_rng)):
-        xn, yn = _rbf_inputs(np, shape_rng, b, n, m, d)
-        x = torch.from_numpy(xn).to(dev)
-        y = torch.from_numpy(yn).to(dev)
-        if b == 1:
-            x, y = x[0], y[0]
-        gamma = 0.5
-        got = ops.rbf_gram(x, y, gamma)
-        want = ops.rbf_gram(x, y, gamma, impl="ref")
-        torch.cuda.synchronize()
-        if got.shape != want.shape or not bool(torch.isfinite(got).all()):
-            raise AssertionError(f"rbf_gram {(b, n, m, d)}: bad output")
-        err = float((got - want).abs().max())
-        if err > RBF_ATOL:
-            raise AssertionError(f"rbf_gram {(b, n, m, d)}: max |err| {err} > {RBF_ATOL}")
-        ms = _time_ms(torch, lambda: ops.rbf_gram(x, y, gamma), 50)
-        eager = _eager_ms(torch, lambda: ops.rbf_gram(x, y, gamma), 50)
-        plain_ms = _time_ms(torch, lambda: ops.rbf_gram(x, y, gamma, impl="ref"), 10)
-        bound, by = _bound_ms(4.0 * (b * n * d + b * m * d + b * n * m),
-                              b * n * m * (2 * d + 5))
-        print(f"[kernel] rbf_gram b={b} n={n} m={m} d={d}: {ms:.4f} ms "
-              f"(eager calls {eager:.4f} ms, plain {plain_ms:.4f} ms, bound "
-              f"{bound * 1e3:.2f} us by {by}, max |err| {err:.3g}) on {kind}",
-              flush=True)
-        rbf.append(dict(shape=(b, n, m, d), ms=ms, plain_ms=plain_ms,
-                        bound_ms=bound, bound_by=by, max_abs_err=err))
+                                    ((1, 176, 1584, 3), table1_rng))]
     # the JSON line carries the fit shape, the largest on the path
     results["rbf_gram"] = dict(rbf[0], max_abs_err=max(r["max_abs_err"] for r in rbf),
                                table1_fit_ms=rbf[3]["ms"], table1_fit_bound_ms=rbf[3]["bound_ms"],
@@ -376,30 +472,7 @@ def phase_kernels(torch, np, kind):
 
     # plan_argmin at B = 10^4, G = 352: identical indices
     b, g = B_FLEET, 352
-    tn, wn, kn, mn = _plan_inputs(np, rng, b, g)
-    t = torch.from_numpy(tn).to(dev)
-    w = torch.from_numpy(wn).to(dev)
-    k = torch.from_numpy(kn).to(dev)
-    mask = torch.from_numpy(mn).to(dev)
-    got = ops.plan_argmin(t, w, k, mask, time_floor=TIME_FLOOR)
-    want = ops.plan_argmin(t, w, k, mask, time_floor=TIME_FLOOR, impl="ref")
-    mism = int((got != want).sum())
-    err = float((got.long() - want.long()).abs().max())
-    if mism:
-        raise AssertionError(f"plan_argmin: {mism} of {b} rows differ")
-    def kernel():
-        return ops.plan_argmin(t, w, k, mask, time_floor=TIME_FLOOR)
-
-    ms = _time_ms(torch, kernel, 200)
-    eager = _eager_ms(torch, kernel, 200)
-    plain_ms = _time_ms(
-        torch, lambda: ops.plan_argmin(t, w, k, mask, time_floor=TIME_FLOOR, impl="ref"), 20)
-    bound, by = _bound_ms(4.0 * b * g + b * g + 4.0 * g + 4.0 * b + 4.0 * b, 5.0 * b * g)
-    print(f"[kernel] plan_argmin B={b} G={g}: {ms:.5f} ms (eager calls {eager:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, bound {bound * 1e3:.2f} us by {by}, {mism} rows "
-          f"differ, {int(np.isnan(tn).any(1).sum())} rows with NaN) on {kind}", flush=True)
-    results["plan_argmin"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                                  bound_by=by, max_abs_err=err)
+    results["plan_argmin"] = _check_plan_argmin(torch, np, rng, kind, b, g)
 
     # pareto_mask at B = 10^4, G = 352 (the sort path) and past the sort's
     # capacity (the all-pairs path): identical keep-sets
@@ -413,17 +486,18 @@ def phase_kernels(torch, np, kind):
     return results
 
 
-def _check_pareto(torch, np, rng, kind, b, g):
+def _check_pareto(torch, np, rng, kind, b, g, inputs=None):
     """One pareto_mask shape: kernel vs plain (identical keep-sets), timed
-    beside its bound."""
+    beside its bound; on inputs of ``rng``, or on ``inputs`` (t, e, mask),
+    a call the fleet runs made."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.plan_grid import pareto_plan
 
-    dev = torch.device(DEVICE)
-    tn, en, mn = _pareto_inputs(np, rng, b, g)
-    t = torch.from_numpy(tn).to(dev)
-    e = torch.from_numpy(en).to(dev)
-    mask = torch.from_numpy(mn).to(dev)
+    if inputs is None:
+        dev = torch.device(DEVICE)
+        t, e, mask = (torch.from_numpy(a).to(dev) for a in _pareto_inputs(np, rng, b, g))
+    else:
+        t, e, mask = inputs
     got = ops.pareto_mask(t, e, mask)
     want = ops.pareto_mask(t, e, mask, impl="ref")
     mism = int((got != want).sum())
@@ -439,10 +513,11 @@ def _check_pareto(torch, np, rng, kind, b, g):
     # 10 bytes a point (t, e, mask in, keep-set out) it must move
     bound, by = _bound_ms(10.0 * b * g, b * g * (3.0 * math.log2(g) + 2.0))
     plan = pareto_plan(b, g)
-    print(f"[kernel] pareto_mask B={b} G={g} ({plan.path}, {plan.slots} slots): {ms:.4f} ms "
-          f"(eager calls {eager:.4f} ms, plain {plain_ms:.4f} ms, bound {bound * 1e3:.2f} us "
+    print(f"[kernel] pareto_mask B={b} G={g}{' (a fleet call)' if inputs else ''} "
+          f"({plan.path}, {plan.slots} slots): {ms:.4f} ms "
+          f"(eager calls {eager:.4f} ms, plain {plain_ms:.4f} ms, bound {bound * 1e3:.4f} us "
           f"by {by}, {mism} points differ, {int(want.sum())} kept of "
-          f"{int((mn & np.isfinite(tn) & np.isfinite(en)).sum())} feasible) on {kind}",
+          f"{int((mask & torch.isfinite(t) & torch.isfinite(e)).sum())} feasible) on {kind}",
           flush=True)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, max_abs_err=err)
 
@@ -940,6 +1015,261 @@ def _fleet_rounds(np, eng, ws, gc_clock):
     n_pts = sum(len(f) for f in fr)
     print(f"[fleet] {len(ws)} plans and {n_pts} frontier points agree across "
           f"the kernel, plain and exact arms", flush=True)
+
+
+def _fleet_job_rows(sched):
+    """The scheduler's completed jobs as the golden's ``job_fields`` rows."""
+    return [
+        [c.placement.job.job_id, c.placement.node, c.placement.frequency_ghz,
+         c.placement.cores, c.placement.start_s, c.finish_s, c.total_energy_j,
+         c.met_deadline, c.migrations, c.placement.pareto_fallback,
+         c.placement.negotiated]
+        for c in sched.completed
+    ]
+
+
+def _fleet_sim_run(argv):
+    """``python -m repro_torch.fleet`` with ``argv`` on the card. Returns the
+    report, the engine scenario's scheduler, and for each of its jobs the
+    (engine, SVR model) its last launch was planned on."""
+    from repro_torch.fleet import __main__ as fleet_main
+    from repro_torch.fleet.cluster import family_key
+    from repro_torch.fleet.scheduler import FleetScheduler
+
+    kept, surfaces = {}, {}
+    inner, launch = fleet_main.run_fleet_comparison, FleetScheduler._launch
+
+    def comparison(*args, **kw):
+        report, sched = inner(*args, **kw)
+        kept["sched"] = sched
+        return report, sched
+
+    def launched(sched, placement, **kw):
+        job = placement.job
+        eng = sched._engine_for(sched._device_of(job))
+        key = job.terms if job.terms is not None else family_key(job.app, job.input_size)
+        surfaces[(id(sched), job.job_id)] = (eng, eng._fits[key].model)
+        return launch(sched, placement, **kw)
+
+    fleet_main.run_fleet_comparison = comparison
+    FleetScheduler._launch = launched
+    try:
+        report = fleet_main.main(list(argv) + ["--device", DEVICE])
+    finally:
+        fleet_main.run_fleet_comparison = inner
+        FleetScheduler._launch = launch
+    sched = kept["sched"]
+    return report, sched, {jid: v for (sid, jid), v in surfaces.items() if sid == id(sched)}
+
+
+def _surface_energy(torch, np, sched, surface, node_name, f, cores):
+    """Predicted energy (J) of running on ``node_name`` at (f, cores), on the
+    port's own surface: the SVR's reference step time (the plain Gram, so
+    no launch is counted) projected by the node's spec skews."""
+    from repro_torch.core import svr
+    from repro_torch.core.engine import TIME_FLOOR
+
+    eng, model = surface
+    t = svr.predict(model, np.array([[f, cores]], np.float32), impl="ref")
+    t_ref = max(float(torch.as_tensor(t).reshape(-1)[0]), TIME_FLOOR)
+    return sched._node_by_name(node_name).spec.expected_energy(eng.power, f, cores, t_ref)
+
+
+def _launch_order(rows):
+    """Completed-job rows in launch order: by start time, then job id."""
+    return sorted(rows, key=lambda r: (r[4], r[0]))
+
+
+def _check_fleet_run(torch, np, gold, report, sched, surfaces):
+    """The engine scenario's completed jobs against the golden's: equal, or
+    the first placement (in launch order) that differs is a near-tie on the
+    port's surface and the rest lies within FLEET_ENERGY_REL of total
+    energy with equal misses. Every job launched before that predicts its
+    energy within FLEET_PRED_REL of the golden's. The governor scenarios,
+    which no SVR steers, equal the golden's bit for bit. Returns the
+    near-tie's line or None, and the largest predicted-energy gap."""
+    label = " ".join(gold["argv"]) or "(default)"
+    rows, want = _fleet_job_rows(sched), gold["jobs"]
+    mine_l, want_l = _launch_order(rows), _launch_order(want)
+    first = next((i for i, (a, b) in enumerate(zip(mine_l, want_l)) if a != b),
+                 None if len(rows) == len(want) else min(len(rows), len(want)))
+    if first is None and rows != want:
+        raise AssertionError(f"fleet {label}: the golden's jobs complete in another order")
+    pred = {c.placement.job.job_id: c.placement.predicted_energy_j for c in sched.completed}
+    gold_pred = {r[0]: e for r, e in zip(want, gold["predicted_energy_j"])}
+    same = [r[0] for r in want_l[:first]]
+    pred_rel = max((abs(pred[j] - gold_pred[j]) / abs(gold_pred[j]) for j in same), default=0.0)
+    if not pred_rel <= FLEET_PRED_REL:
+        raise AssertionError(f"fleet {label}: the jobs placed as in the golden predict their "
+                             f"energy {pred_rel:.3g} off the golden's, over {FLEET_PRED_REL}")
+    near_tie = None
+    if first is not None:
+        mine = {r[0]: r for r in rows}
+        theirs = {r[0]: r for r in want}
+        jids = [r[0] for r in (want_l[first:first + 1] + mine_l[first:first + 1])]
+        moved = [j for j in jids
+                 if j not in mine or j not in theirs or mine[j][1:4] != theirs[j][1:4]]
+        if not moved or moved[0] not in mine or moved[0] not in theirs:
+            raise AssertionError(f"fleet {label}: launch {first} differs from the golden "
+                                 f"without a different placement: {mine_l[first:first + 1]} "
+                                 f"vs {want_l[first:first + 1]}")
+        jid = moved[0]
+        (_, node_p, f_p, c_p), (_, node_g, f_g, c_g) = mine[jid][:4], theirs[jid][:4]
+        e_p = _surface_energy(torch, np, sched, surfaces[jid], node_p, f_p, c_p)
+        e_g = _surface_energy(torch, np, sched, surfaces[jid], node_g, f_g, c_g)
+        rel = abs(e_g - e_p) / e_p
+        near_tie = (f"fleet {label}: job {jid} port ({node_p}, {f_p}, {c_p}) vs golden "
+                    f"({node_g}, {f_g}, {c_g}), port energies {e_p!r} vs {e_g!r}, rel {rel:.3g}")
+        if not rel <= NEAR_TIE_REL:
+            raise AssertionError("fleet placement differs from the golden: " + near_tie)
+        print(f"[near-tie] {near_tie}", flush=True)
+    for name, g in gold["scenarios"].items():
+        s = report.scenarios[name]
+        got = {"total_energy_j": s.total_energy_j, "makespan_s": s.makespan_s,
+               "deadline_misses": s.deadline_misses}
+        if near_tie is None or not name.startswith("engine"):
+            if got != g:
+                raise AssertionError(f"fleet {label}: scenario {name} {got} != golden {g}")
+        elif (abs(got["total_energy_j"] - g["total_energy_j"]) > FLEET_ENERGY_REL
+              * g["total_energy_j"] or got["deadline_misses"] != g["deadline_misses"]):
+            raise AssertionError(f"fleet {label}: scenario {name} {got} vs golden {g} "
+                                 f"after the near-tie")
+    counts = (sched.telemetry.n_recharacterizations, sched.migrations())
+    if near_tie is None and counts != (gold["refits"], gold["migrations"]):
+        raise AssertionError(f"fleet {label}: (refits, migrations) {counts} != golden "
+                             f"{(gold['refits'], gold['migrations'])}")
+    e = report.engine
+    print(f"[fleet] {label}: {len(rows)} jobs "
+          f"{'equal to' if near_tie is None else 'after a near-tie against'} the JAX golden; "
+          f"predicted energy of the {len(same)} jobs placed as in the golden within "
+          f"{pred_rel!r} of the golden's; "
+          f"engine {e.total_energy_j!r} J, makespan {e.makespan_s!r} s, "
+          f"{e.deadline_misses} misses, refits {counts[0]}, migrations {counts[1]}; "
+          f"{len(report.scenarios) - 1} baseline scenarios "
+          f"{'bit for bit' if near_tie is None else 'held'}", flush=True)
+    return near_tie, pred_rel
+
+
+def phase_fleet_sim(torch, np, smi):
+    """The four golden runs of ``python -m repro_torch.fleet`` on the card."""
+    with open(FLEET_GOLDEN) as f:
+        golden = json.load(f)
+    if len(golden["runs"]) != 4:
+        raise AssertionError(f"{len(golden['runs'])} fleet golden runs, not 4")
+    print(f"[fleet] {smi}", flush=True)
+    near_ties, pred_rel = [], 0.0
+    for gold in golden["runs"]:
+        t0 = time.perf_counter()
+        report, sched, surfaces = _fleet_sim_run(gold["argv"])
+        _stage(f"fleet simulation: python -m repro_torch.fleet {' '.join(gold['argv'])} "
+               f"--device {DEVICE} ({len(sched.rounds)} rounds)", t0)
+        tie, rel = _check_fleet_run(torch, np, gold, report, sched, surfaces)
+        near_ties.append(tie)
+        pred_rel = max(pred_rel, rel)
+    print(f"[fleet] {sum(t is None for t in near_ties)} of 4 runs equal the JAX golden, "
+          f"{sum(t is not None for t in near_ties)} near-ties; predicted energies within "
+          f"{pred_rel!r} of the golden's (limit {FLEET_PRED_REL})", flush=True)
+
+
+def _round_mantissa(torch, x, bits: int):
+    """f32 ``x`` rounded to ``bits`` mantissa bits (half away from zero in
+    the magnitude's bits)."""
+    drop = 23 - bits
+    i = x.contiguous().view(torch.int32)
+    return ((i + (1 << (drop - 1))) & ~((1 << drop) - 1)).view(torch.float32)
+
+
+def phase_fleet_control(torch, np):
+    """The --quick run on a Gram (the kernel's) rounded to CONTROL_BITS
+    mantissa bits must be refused by ``_check_fleet_run``: the check sees a
+    fault that shifts the SVR's predictions, not only one that moves a
+    placement."""
+    from repro_torch.kernels import ops
+
+    with open(FLEET_GOLDEN) as f:
+        gold = next(r for r in json.load(f)["runs"] if r["argv"] == ["--quick"])
+    inner = ops.rbf_gram
+    ops.rbf_gram = lambda *a, **kw: _round_mantissa(torch, inner(*a, **kw), CONTROL_BITS)
+    try:
+        report, sched, surfaces = _fleet_sim_run(gold["argv"])
+    finally:
+        ops.rbf_gram = inner
+    try:
+        _check_fleet_run(torch, np, gold, report, sched, surfaces)
+    except AssertionError as refused:
+        print(f"[fleet] control, the Gram rounded to {CONTROL_BITS} mantissa bits: refused "
+              f"({refused})", flush=True)
+        return
+    raise AssertionError(f"fleet: the control (the Gram rounded to {CONTROL_BITS} mantissa "
+                         f"bits) passed the golden check")
+
+
+def _replay_fleet_calls(torch, name: str, calls) -> float:
+    """Every call the fleet runs made of one planning kernel, again:
+    kernel against plain version on the same inputs (rbf_gram within
+    RBF_ATOL, the others exactly). Returns the largest error."""
+    from repro_torch.kernels import ops
+
+    fn = getattr(ops, name)
+    err, rows, feasible = 0.0, 0, 0
+    for shape, args, kw in calls:
+        got, want = fn(*args, **kw), fn(*args, **kw, impl="ref")
+        if name == "rbf_gram":
+            e = float((got - want).abs().max())
+            bad = not e <= RBF_ATOL
+        else:
+            e = float((got.long() - want.long()).abs().max())
+            bad = bool((got != want).any())
+            mask = args[-1]  # (B, G): plan_argmin's and pareto_mask's last input
+            rows += mask.shape[0]
+            feasible += int(mask.any(1).sum())
+        if bad:
+            raise AssertionError(f"{name} at the fleet shape {shape}: kernel vs plain, "
+                                 f"max |err| {e}")
+        err = max(err, e)
+    if name != "rbf_gram" and not feasible:
+        raise AssertionError(f"{name}: the fleet calls hold no row with a feasible point")
+    print(f"[fleet] {name}: the fleet runs' {len(calls)} calls replayed, kernel against "
+          f"plain, max |err| {err:.3g}"
+          + (f"; {feasible} of {rows} rows with a feasible point" if rows else ""), flush=True)
+    return err
+
+
+def phase_fleet_kernels(torch, np, kind, shapes, calls):
+    """Each planning kernel against its plain version on every call the
+    fleet runs made, and timed on the fleet's own inputs at the smallest
+    and the largest shape it launched at (the call with the most rows
+    holding a feasible point). Returns {name: {fleet_* numbers}}."""
+    check = {"rbf_gram": _check_rbf, "plan_argmin": _check_plan_argmin,
+             "pareto_mask": _check_pareto}
+    out = {}
+    for name in FLEET_KERNELS:
+        tally = shapes[name]
+        if not tally:
+            raise AssertionError(f"{name} never launched in the fleet runs")
+        print(f"[launches] fleet simulation: {name} {sum(tally.values())} launches by shape "
+              f"{sorted(tally.items(), key=lambda kv: -kv[1])}", flush=True)
+        replay_err = _replay_fleet_calls(torch, name, calls[name])
+        by_size = sorted(tally, key=lambda sh: (math.prod(sh), sh))
+        small, large = by_size[0], by_size[-1]
+
+        def inputs(shape):
+            at = [(args, kw) for sh, args, kw in calls[name] if sh == shape]
+            args, kw = max(at, key=lambda c: 0 if name == "rbf_gram"
+                           else int(c[0][-1].any(1).sum()))
+            return tuple(args) + tuple(kw.values())
+
+        cases = {shape: check[name](torch, np, None, kind, *shape, inputs=inputs(shape))
+                 for shape in dict.fromkeys((small, large))}
+        # the JSON line carries the largest shape, and the smallest's times
+        out[name] = {f"fleet_{key}": val for key, val in cases[large].items()
+                     if key != "shape"}
+        out[name].update(fleet_shape=list(large), fleet_small_shape=list(small),
+                         fleet_max_abs_err=max([replay_err] + [r["max_abs_err"]
+                                                               for r in cases.values()]),
+                         **{f"fleet_small_{key}": cases[small][key]
+                            for key in ("ms", "plain_ms", "bound_ms")})
+    return out
 
 
 def _golden_params(golden, prefix: str) -> dict:
@@ -1449,12 +1779,13 @@ def main() -> int:
     # after it; the planning kernels' main path is phases 4 and 5
     loop_launches, loop_shapes = _counted(ops, lambda: phase_paper_loop(torch, np))
     t0 = _stage("paper loop", t0)
-    t1_launches, t1_shapes = _counted(ops, lambda: phase_table1(torch, np))
+    t1_launches, t1_tallies = _counted(ops, lambda: phase_table1(torch, np))
     t0 = _stage("table1: the paper's cross-validation", t0)
     fleet_launches, fleet_shapes = _counted(ops, lambda: phase_fleet(torch, np))
     t0 = _stage("fleet-scale planning", t0)
     launches = {k: loop_launches[k] + fleet_launches[k] for k in ops.LAUNCHES}
-    rbf_shapes = loop_shapes + fleet_shapes
+    rbf_shapes = loop_shapes["rbf_gram"] + fleet_shapes["rbf_gram"]
+    t1_shapes = t1_tallies["rbf_gram"]
     print(f"[launches] rbf_gram in phases 4-5 by shape (b, n, m, d): "
           f"{sorted(rbf_shapes.items(), key=lambda kv: -kv[1])}", flush=True)
     print(f"[launches] table1 phase: {json.dumps(t1_launches)}; rbf_gram by shape: "
@@ -1471,6 +1802,20 @@ def main() -> int:
             raise AssertionError(f"table1: rbf_gram at {shape} launched {t1_shapes[shape]} "
                                  f"times, not {n}")
     results["rbf_gram"]["table1_launches"] = t1_launches["rbf_gram"]
+    sim_calls = {}
+    sim_launches, sim_shapes = _counted(ops, lambda: phase_fleet_sim(torch, np, smi), sim_calls)
+    t0 = _stage("fleet simulation: four runs of python -m repro_torch.fleet", t0)
+    phase_fleet_control(torch, np)
+    t0 = _stage("fleet simulation: the control", t0)
+    for name, tally in sim_shapes.items():
+        if sum(tally.values()) != sim_launches[name]:
+            raise AssertionError(f"{name} in the fleet simulation: {sim_launches[name]} "
+                                 f"launches, {sum(tally.values())} calls by shape")
+    print(f"[launches] fleet simulation: {json.dumps(sim_launches)}", flush=True)
+    for name, numbers in phase_fleet_kernels(torch, np, kind, sim_shapes, sim_calls).items():
+        results[name].update(numbers, fleet_launches=sim_launches[name])
+        launches[name] += sim_launches[name]
+    t0 = _stage("fleet simulation: the planning kernels at its shapes", t0)
     phase_serve_golden(torch, np)
     t0 = _stage("serve: SMOKE golden on the card", t0)
     serve_launches = phase_serve_full(torch, np)
@@ -1522,7 +1867,7 @@ def main() -> int:
         # ssd_chunks' training) and flash_attention's lse error
         entry.update({key: val for key, val in r.items()
                       if key.startswith(("decode_", "train_", "lse_", "fp32_", "d256_",
-                                         "pairs_", "table1_"))})
+                                         "pairs_", "table1_", "fleet_"))})
         if name in ("flash_attention", "ssd_chunks"):
             entry["train_launches"] = train_launches[name]
         line.append(entry)

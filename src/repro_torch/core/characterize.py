@@ -8,9 +8,9 @@ methodology downstream is identical.
 ``CharacterizationSet`` collects the grids of many applications and fits
 them all in ONE ``svr.fit_many`` call (one stacked Gram build on the
 device, batched KKT solves on the host). ``terms_from_artifacts`` reads
-``launch/dryrun.py`` artifact records; turning them into engine workloads
-(``workloads_from_artifacts``) needs the model zoo's shape cells and is
-not ported yet (ROADMAP A4).
+``launch/dryrun.py`` artifact records, and ``workloads_from_artifacts``
+turns them into engine workloads over the zoo's shape cells
+(``configs.base.SHAPES``).
 """
 
 from __future__ import annotations
@@ -190,3 +190,36 @@ def terms_from_artifacts(
         if terms is not None:
             out[(m.group("arch"), m.group("shape"))] = terms
     return out
+
+
+def workloads_from_artifacts(
+    dryrun_dir: Optional[str] = None,
+    *,
+    mesh: str = "pod",
+    n_steps: int = 1,
+    objective: Optional[str] = None,
+) -> List["object"]:
+    """Every dry-run artifact as an engine ``Workload`` (fleet-scale intake).
+
+    The returned list goes to ``PlanningEngine.plan_many`` in one call: one
+    batched ``svr.fit_many`` characterization for all families, one batched
+    grid prediction, one objective tensor.
+    """
+    from repro_torch.configs.base import SHAPES, ShapeCell
+    from repro_torch.core.engine import Workload  # lazy: avoid import cycle
+
+    return [
+        Workload(
+            arch,
+            # keep the artifact's shape label even when the shape is no
+            # longer in SHAPES (stale/renamed sweeps must stay tellable
+            # apart in fleet reports, not collapse into "custom")
+            cell=SHAPES.get(shape) or ShapeCell(shape, 0, 0, "unknown"),
+            n_steps=n_steps,
+            objective=objective,
+            terms=terms,
+        )
+        for (arch, shape), terms in terms_from_artifacts(
+            dryrun_dir, mesh=mesh
+        ).items()
+    ]

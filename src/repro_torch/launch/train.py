@@ -10,8 +10,9 @@ AdamW with its schedule, async checkpoints with preemption-safe restart
 (SIGTERM), straggler telemetry, and optional int8 error-feedback gradient
 compression over the data-parallel group (``--compress``: NCCL on the
 card, gloo on the host; one rank unless ``torchrun`` starts more).
-``--auto-energy`` (the planner, ``core/planner.py``) is not ported
-(ROADMAP A5) and raises. Weights are random, from a seeded
+``--auto-energy`` logs the planner's energy-optimal (f, chips) plan for
+the run's shape (``core/planner.py``); it needs the arch's dry-run
+artifact until the analytic roofline is ported (ROADMAP A8). Weights are random, from a seeded
 ``torch.Generator`` on the device; the model, its AdamW state and the
 error-feedback residuals are updated in place.
 """
@@ -80,15 +81,23 @@ def main(argv=None):
     ap.add_argument("--device", default=None, help="default: cuda; 'cpu' runs on the host")
     args = ap.parse_args(argv)
 
-    if args.auto_energy:
-        raise NotImplementedError(
-            "--auto-energy is not ported yet (ROADMAP A5: core/planner.py)")
     dev = resolve_device(args.device)
     arch, cfg = resolve_arch(args.arch, args.smoke)
     opt_cfg = adamw.AdamWConfig(
         peak_lr=args.lr, warmup_steps=args.warmup, total_steps=max(args.steps, 1))
     pipeline = SyntheticPipeline(PipelineConfig(
         vocab=cfg.vocab, seq=args.seq, global_batch=args.batch, seed=args.seed))
+
+    if args.auto_energy:
+        from repro_torch.configs.base import ShapeCell
+        from repro_torch.core.planner import EnergyOptimalPlanner
+
+        planner = EnergyOptimalPlanner.default(device=dev)
+        plan = planner.plan_for_workload(
+            arch_id=args.arch,
+            cell=ShapeCell("train", args.seq, args.batch, "train"),
+        )
+        obs.log(f"[auto-energy] {plan.summary()}")
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     model = arch.init(gen, cfg, device=dev)

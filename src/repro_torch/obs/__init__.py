@@ -141,7 +141,7 @@ def export_run(rec: FlightRecorder, *, sched: Any = None) -> Dict[str, Any]:
     scheduler is given) the reconstructed per-node timeline lanes;
     ``metrics`` is the registry rollup and ``timeline`` the raw segment
     rows. Extra top-level keys are legal in the trace-event format, so
-    the one file serves both the viewer and the trace summarizer.
+    the one file serves both the viewer and ``python -m repro_torch.obs``.
     """
     events = rec.trace.events()
     segments = _timeline.build_timeline(sched) if sched is not None else []

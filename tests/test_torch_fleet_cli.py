@@ -1,0 +1,377 @@
+"""``python -m repro_torch.fleet`` against the live JAX package, on the host.
+
+Each package fits its own power model and SVR surfaces here, as a user's
+run does; the power fits differ by up to ~1e-5 relative (ROADMAP §C). On
+the three ``--quick`` runs the schedules come out identical, not a
+near-tie: the printed report table, every completed job and every
+scenario. The committed golden that ``chip_smoke.py`` holds the card to
+must equal the live reference's runs, so it cannot go stale. Also: the
+artifact intake (``workloads_from_artifacts``, ``--artifacts``), a mixed
+CPU + TPU pool with explicit TPU terms, ``--trace`` with ``python -m
+repro_torch.obs``, the planner, the entry points that are not ported, and
+``chip_smoke.py``'s golden check of a fleet run, run on the host.
+"""
+
+import contextlib
+import copy
+import dataclasses
+import importlib.util
+import io
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from helpers.make_torch_port_fleet_golden import (
+    OUT as GOLDEN,
+    job_rows,
+    run_captured,
+    run_record,
+)
+from repro.configs.base import SHAPES as REF_SHAPES
+from repro.core import characterize as ref_characterize
+from repro.core import engine as ref_engine
+from repro.core import planner as ref_planner
+from repro.fleet import __main__ as ref_main
+from repro.fleet import cluster as ref_cluster
+from repro.fleet import report as ref_report
+from repro.fleet import scheduler as ref_scheduler
+from repro_torch import obs
+from repro_torch.configs.base import SHAPES
+from repro_torch.core import characterize, engine, planner
+from repro_torch.core.power import PowerModel
+from repro_torch.fleet import __main__ as port_main
+from repro_torch.fleet import cluster, report, scheduler
+from repro_torch.obs.__main__ import main as obs_main
+
+CPU = "cpu"
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# plans' predicted energies carry the SVR's last-bit differences
+PRED_REL = 5e-4
+QUICK_RUNS = {
+    "quick": ["--quick"],
+    "horizon-burst": ["--quick", "--horizon", "600", "--burst", "3"],
+    "fallback": ["--quick", "--fallback"],
+}
+
+
+def _printed(module, argv):
+    """``run_captured(module, argv)`` and what it printed."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rep, sched = run_captured(module, argv)
+    return rep, sched, buf.getvalue()
+
+
+@pytest.fixture(scope="module", params=sorted(QUICK_RUNS))
+def own_fit_runs(request):
+    argv = QUICK_RUNS[request.param]
+    return (argv, _printed(ref_main, argv), _printed(port_main, argv + ["--device", CPU]))
+
+
+def _strip_predicted(doc):
+    pred = [p.pop("predicted_energy_j") for p in doc["comparison"]["plans"]]
+    return json.dumps(doc, sort_keys=True, default=float), pred
+
+
+def test_own_fits_give_identical_schedules(own_fit_runs):
+    argv, (ref_rep, ref_sched, ref_out), (rep, sched, out) = own_fit_runs
+    # identical, not a near-tie: every completed job, the table as printed
+    assert job_rows(sched) == job_rows(ref_sched), argv
+    assert out == ref_out
+    assert "engine <= every baseline fleet (tol 5%): True" in out
+    got, pred = _strip_predicted(rep.to_json())
+    want, ref_pred = _strip_predicted(ref_rep.to_json())
+    assert got == want
+    np.testing.assert_allclose(pred, ref_pred, rtol=PRED_REL, atol=0)
+
+
+def test_golden_equals_the_live_reference(own_fit_runs):
+    argv, (ref_rep, ref_sched, _), (rep, sched, _) = own_fit_runs
+    with open(GOLDEN) as f:
+        golden = json.load(f)
+    gold = next(r for r in golden["runs"] if r["argv"] == argv)
+    live = json.loads(json.dumps(dict(argv=argv, **run_record(ref_rep, ref_sched))))
+    assert live == gold
+    # and the port on the host, as chip_smoke.py holds the card
+    mine = json.loads(json.dumps(run_record(rep, sched)))
+    for key in ("jobs", "scenarios", "refits", "migrations"):
+        assert mine[key] == gold[key], key
+    assert [r["argv"] for r in golden["runs"]] == [
+        [], ["--quick"], ["--quick", "--horizon", "600", "--burst", "3"],
+        ["--quick", "--fallback"]]
+
+
+# ---------------------------------------------------------------------------
+# chip_smoke.py's golden check, on the host
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    """A private copy of ``chip_smoke.py`` whose runs take the host."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    module.DEVICE = CPU
+    return module
+
+
+@pytest.fixture(scope="module")
+def smoke_quick(smoke):
+    with open(GOLDEN) as f:
+        gold = next(r for r in json.load(f)["runs"] if r["argv"] == ["--quick"])
+    with contextlib.redirect_stdout(io.StringIO()):
+        rep, sched, surfaces = smoke._fleet_sim_run(gold["argv"])
+    return gold, rep, sched, surfaces
+
+
+def test_smoke_fleet_check_passes_the_port_and_refuses_the_control(smoke, smoke_quick, capsys):
+    gold, rep, sched, surfaces = smoke_quick
+    tie, pred_rel = smoke._check_fleet_run(torch, np, gold, rep, sched, surfaces)
+    assert tie is None and 0 < pred_rel <= smoke.FLEET_PRED_REL
+    # a Gram rounded to CONTROL_BITS bits keeps the placements, not the
+    # predictions; the phase raises if the check lets it through
+    smoke.phase_fleet_control(torch, np)
+    assert "refused" in capsys.readouterr().out
+
+
+def test_smoke_fleet_check_finds_the_first_divergence_in_launch_order(
+        smoke, smoke_quick, monkeypatch, capsys):
+    """A job placed otherwise, and a job launched after it that completes
+    first with the same placement and a later start: the first divergence
+    in launch order is the first job's placement."""
+    gold, rep, sched, surfaces = smoke_quick
+    jobs = copy.deepcopy(gold["jobs"])
+    done = {r[0]: i for i, r in enumerate(jobs)}
+    a, b = next((a, b) for a in jobs for b in jobs if a[4] < b[4] and done[b[0]] < done[a[0]])
+    a[3] += 1  # cores
+    b[4] += 1e-3  # start
+    moved = dict(gold, jobs=jobs)
+    monkeypatch.setattr(smoke, "NEAR_TIE_REL", 1.0)
+    tie, _ = smoke._check_fleet_run(torch, np, moved, rep, sched, surfaces)
+    assert tie is not None and f"job {a[0]} " in tie
+    assert "[near-tie]" in capsys.readouterr().out
+    monkeypatch.setattr(smoke, "NEAR_TIE_REL", 0.0)
+    with pytest.raises(AssertionError, match="placement differs from the golden"):
+        smoke._check_fleet_run(torch, np, moved, rep, sched, surfaces)
+
+
+# ---------------------------------------------------------------------------
+# artifact intake
+# ---------------------------------------------------------------------------
+
+
+def _write_artifacts(dirpath):
+    for arch, flops, shape in (("gem", 2e15, "train_4k"), ("qwn", 5e15, "prefill_32k"),
+                               ("mmb", 8e14, "train_4k"), ("old", 3e15, "renamed_1k")):
+        rec = {"ok": True, "hlo": {"flops_per_device": flops,
+                                   "memory_bytes_per_device": 1e12,
+                                   "collective_bytes_per_device": 2e11}}
+        with open(os.path.join(dirpath, f"{arch}__{shape}__pod.json"), "w") as f:
+            json.dump(rec, f)
+    with open(os.path.join(dirpath, "bad__train_4k__pod.json"), "w") as f:
+        json.dump({"ok": False}, f)
+
+
+def test_workloads_from_artifacts_match_reference(tmp_path):
+    _write_artifacts(str(tmp_path))
+    got = characterize.workloads_from_artifacts(str(tmp_path), n_steps=3, objective="edp")
+    want = ref_characterize.workloads_from_artifacts(str(tmp_path), n_steps=3,
+                                                     objective="edp")
+    assert len(got) == len(want) == 4
+
+    def view(w):
+        return (w.arch, dataclasses.asdict(w.cell), w.n_steps, w.objective,
+                dataclasses.asdict(w.terms), w.shape_name)
+
+    assert sorted(map(view, got)) == sorted(map(view, want))
+    assert {w.shape_name for w in got} == {"train_4k", "prefill_32k", "renamed_1k"}
+
+
+def _inject_power(module, power):
+    """``module.fleet_engine`` with ``power_model`` injected; returns the
+    restore function."""
+    inner = module.fleet_engine
+
+    def fleet_engine(pool, **kw):
+        return inner(pool, **dict(kw, power_model=power))
+
+    module.fleet_engine = fleet_engine
+    return lambda: setattr(module, "fleet_engine", inner)
+
+
+def test_artifacts_cli_matches_reference(tmp_path):
+    _write_artifacts(str(tmp_path))
+    argv = ["--quick", "--artifacts", str(tmp_path)]
+    kw = ref_main._grids(True, 0)[0]
+    rp = ref_scheduler.fleet_engine(ref_cluster.make_pool(4, seed=0), **kw).power
+    runs = {}
+    for key, module, power, extra in (
+            ("ref", ref_main, rp, []),
+            ("port", port_main, PowerModel(*(float(c) for c in (rp.c1, rp.c2, rp.c3, rp.c4))),
+             ["--device", CPU])):
+        restore = _inject_power(module, power)
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                runs[key] = module.main(argv + extra)
+        finally:
+            restore()
+    assert set(runs["port"].scenarios) == {"engine", "engine-fallback"}
+    assert runs["port"].engine.n_jobs == 4
+    got, pred = _strip_predicted(runs["port"].to_json())
+    want, ref_pred = _strip_predicted(runs["ref"].to_json())
+    assert got == want
+    np.testing.assert_allclose(pred, ref_pred, rtol=PRED_REL, atol=0)
+
+
+def _mixed_jobs(mod, cluster_mod, engine_mod):
+    """Profiled CPU jobs with TPU jobs of explicit roofline terms between
+    them (no dry-run artifact, no analytic roofline)."""
+    from repro_torch.core.node_sim import F_MAX, PROFILES
+
+    apps = sorted(PROFILES)
+    bases = [engine_mod.RooflineTerms(compute_s=c, memory_s=m, collective_s=k, source="synthetic")
+             for c, m, k in ((2.0, 0.6, 0.1), (0.4, 1.1, 0.2))]
+    jobs, t = [], 0.0
+    for i in range(9):
+        if i % 3 == 2:
+            fam = cluster_mod.TermsFamily(base=bases[i % 2], app=f"zoo{i % 2}:train_4k",
+                                          time_scale=120.0)
+            est = fam.step_time(1.1, 256)
+            jobs.append(mod.Job(i, fam.app, fam.input_size, deadline_s=t + 3.0 * est,
+                                arrival_s=t, terms=fam, device="tpu"))
+        else:
+            app = apps[i % len(apps)]
+            jobs.append(mod.Job(i, app, 1.0, deadline_s=t + 3.0 * PROFILES[app].time(
+                F_MAX, 16, 1.0), arrival_s=t))
+        t += 180.0
+    return jobs
+
+
+def test_mixed_pool_with_explicit_terms_matches_reference():
+    from repro.core import tpu_power as ref_tpu_power
+    from repro.core.power import PowerModel as RefPowerModel
+
+    cpu_kw, tpu_kw = ref_main._grids(True, 0)[:2]
+    ref_pool = ref_cluster.make_mixed_pool(2, 2, seed=0)
+    powers = {"cpu": ref_scheduler.fleet_engine(ref_pool, **cpu_kw).power,
+              "tpu": ref_tpu_power.fit_fleet_power(ref_tpu_power.FleetTelemetry(seed=0))}
+    assert isinstance(powers["tpu"], RefPowerModel)
+
+    def port_pm(p):
+        return PowerModel(*(float(c) for c in (p.c1, p.c2, p.c3, p.c4)))
+
+    common = dict(n_cpu=2, n_tpu=2, seed=0, char_freqs=None, char_cores=None,
+                  migration=None, drift_events=[(400.0, "zoo1:train_4k", 1.6)])
+    ref_rep, ref_sched = ref_report.run_mixed_fleet_comparison(
+        _mixed_jobs(ref_scheduler, ref_cluster, ref_engine),
+        cpu_engine_kw=dict(cpu_kw, power_model=powers["cpu"]),
+        tpu_engine_kw=dict(tpu_kw, power_model=powers["tpu"]), **common)
+    rep, sched = report.run_mixed_fleet_comparison(
+        _mixed_jobs(scheduler, cluster, engine),
+        cpu_engine_kw=dict(cpu_kw, power_model=port_pm(powers["cpu"]), device=CPU),
+        tpu_engine_kw=dict(tpu_kw, power_model=port_pm(powers["tpu"]), device=CPU), **common)
+    assert {c.placement.job.device for c in sched.completed} == {"cpu", "tpu"}
+    assert job_rows(sched) == job_rows(ref_sched)
+    got, pred = _strip_predicted(rep.to_json())
+    want, ref_pred = _strip_predicted(ref_rep.to_json())
+    assert got == want
+    np.testing.assert_allclose(pred, ref_pred, rtol=PRED_REL, atol=0)
+    assert set(sched.engines) == {"cpu", "tpu"}
+    assert all(e.device == torch.device(CPU) for e in sched.engines.values())
+
+
+# ---------------------------------------------------------------------------
+# the flight recorder
+# ---------------------------------------------------------------------------
+
+
+def test_traced_run_is_bit_for_bit_and_summarized(tmp_path, capsys):
+    path = str(tmp_path / "trace.json")
+    plain = port_main.main(["--quick", "--device", CPU])
+    traced = port_main.main(["--quick", "--device", CPU, "--trace", path])
+    off, on = plain.to_json(), traced.to_json()
+    for doc in (off, on):
+        for s in doc["scenarios"].values():
+            s.pop("obs_rollup")
+    assert json.dumps(off, sort_keys=True, default=float) == json.dumps(
+        on, sort_keys=True, default=float)
+    assert traced.engine.obs_rollup["counters"]["fleet.rounds"] > 0
+    capsys.readouterr()
+    assert obs_main([path]) == 0
+    out = capsys.readouterr().out
+    assert "schema v1" in out and "fleet.round" in out and "fleet.rounds" in out
+    assert obs_main([path, "--json"]) == 0
+    rollup = json.loads(capsys.readouterr().out)
+    assert {"fleet.round", "engine.pareto_many"} <= {r["name"] for r in rollup["spans"]}
+    assert not obs.enabled()
+
+
+# ---------------------------------------------------------------------------
+# the planner and the entry points
+# ---------------------------------------------------------------------------
+
+
+def test_planner_plans_an_artifact_like_the_reference(tmp_path):
+    from repro.core.tpu_power import FleetTelemetry as RefTelemetry
+    from repro.core.tpu_power import fit_fleet_power as ref_fit
+
+    _write_artifacts(str(tmp_path))
+    rp = ref_fit(RefTelemetry())
+    mine = planner.EnergyOptimalPlanner(
+        PowerModel(*(float(c) for c in (rp.c1, rp.c2, rp.c3, rp.c4))),
+        dryrun_dir=str(tmp_path), device=CPU)
+    theirs = ref_planner.EnergyOptimalPlanner(rp, dryrun_dir=str(tmp_path))
+    for arch, shape in (("gem", "train_4k"), ("qwn", "prefill_32k")):
+        got = mine.plan_for_workload(arch, SHAPES[shape], max_step_time_s=50.0)
+        want = theirs.plan_for_workload(arch, REF_SHAPES[shape], max_step_time_s=50.0)
+        assert (got.chips, got.pods, got.frequency_ghz) == (want.chips, want.pods,
+                                                             want.frequency_ghz)
+        assert got.step_time_s == pytest.approx(want.step_time_s, rel=PRED_REL)
+    assert mine.engine.device == torch.device(CPU)
+    with pytest.raises(NotImplementedError, match="A8"):
+        mine.plan_for_workload("starcoder2-3b", SHAPES["train_4k"])  # terms_analytic
+
+
+@pytest.mark.parametrize("flags", [["--service"], ["--service", "--journal", "j.json"],
+                                   ["--service", "--journal", "j.json", "--kill-at", "100"],
+                                   ["--resume", "j.json"]])
+def test_service_flags_raise_naming_a6(flags):
+    with pytest.raises(NotImplementedError, match="A6"):
+        port_main.main(["--quick", "--device", CPU] + flags)
+
+
+def test_mixed_without_an_artifact_reaches_terms_analytic():
+    # the zoo's TPU jobs take their terms from a dry-run artifact, else the
+    # analytic roofline, which waits on the model zoo
+    with pytest.raises(NotImplementedError, match="A8"):
+        port_main.main(["--quick", "--mixed", "--device", CPU])
+
+
+def test_service_mode_and_default_device_raise():
+    pool = cluster.make_pool(4, seed=0)
+    with pytest.raises(NotImplementedError, match="A6"):
+        report.run_engine_fleet(pool, [], service=True)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            scheduler.fleet_engine(pool)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            port_main.main(["--quick"])
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            planner.EnergyOptimalPlanner.default()
+    # a mixed pool's engines share one torch device
+    mixed = cluster.make_mixed_pool(2, 2, seed=0)
+    cpu_engine = scheduler.fleet_engine(mixed, device=CPU)
+    with pytest.raises(ValueError, match="one torch device"):
+        scheduler.FleetScheduler(mixed, {"cpu": cpu_engine, "tpu": _OtherDevice(cpu_engine)})
+
+
+class _OtherDevice:
+    """An engine stand-in on another torch device."""
+
+    def __init__(self, eng):
+        self.power, self.freq_grid, self.chip_grid = eng.power, eng.freq_grid, eng.chip_grid
+        self.device = torch.device("meta")

@@ -196,6 +196,74 @@ def test_engine_fused_kernel_path_matches_exact(cuda):
     assert eng.pareto_many(ws) == eng.pareto_many(ws, fused=False)
 
 
+# the fleet's shapes: a round plans B <= 32 pending jobs on the quick grid
+# (G = 96) or the paper's (G = 352); its SVR fits and refits are a few dozen
+# to a few hundred telemetry samples
+@pytest.mark.parametrize("g", [96, 352])
+@pytest.mark.parametrize("b", [1, 7, 32])
+def test_planning_kernels_at_fleet_shapes(cuda, b, g):
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(7 * b + g)
+    t = rng.lognormal(3.0, 1.0, (b, g)).astype(np.float32)
+    w = rng.uniform(50.0, 600.0, (1, g)).astype(np.float32)
+    e = t * w
+    k = rng.choice([0.0, 1.0, 2.0], b).astype(np.float32)
+    mask = rng.random((b, g)) < 0.6
+    t[:, 1::4] = t[:, 0::4][:, : t[:, 1::4].shape[1]]  # exact ties
+    mask[:, 3::5] = True
+    tt, ww, ee, kk, mm = (torch.from_numpy(a).to(cuda) for a in (t, w, e, k, mask))
+    before = dict(ops.LAUNCHES)
+    got = ops.plan_argmin(tt, ww, kk, mm, time_floor=TIME_FLOOR)
+    keep = ops.pareto_mask(tt, ee, mm)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["plan_argmin"] == before["plan_argmin"] + 1
+    assert ops.LAUNCHES["pareto_mask"] == before["pareto_mask"] + 1
+    assert torch.equal(got, ops.plan_argmin(tt, ww, kk, mm, time_floor=TIME_FLOOR, impl="ref"))
+    assert torch.equal(keep, ops.pareto_mask(tt, ee, mm, impl="ref"))
+
+
+@pytest.mark.parametrize("m", [5, 13, 37])
+@pytest.mark.parametrize("n", [5, 13, 37])
+def test_rbf_gram_kernel_at_fleet_shapes(cuda, n, m):
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(n * 100 + m)
+    x = torch.from_numpy(rng.standard_normal((n, 2)).astype(np.float32)).to(cuda)
+    y = torch.from_numpy(rng.standard_normal((m, 2)).astype(np.float32)).to(cuda)
+    before = ops.LAUNCHES["rbf_gram"]
+    got = ops.rbf_gram(x, y, 0.5)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["rbf_gram"] == before + 1
+    torch.testing.assert_close(got, ops.rbf_gram(x, y, 0.5, impl="ref"), rtol=0, atol=2e-6)
+
+
+def test_fleet_engine_plans_a_round_of_32_jobs_on_the_card(cuda):
+    from repro_torch.core.engine import Constraints, Workload
+    from repro_torch.fleet.__main__ import build_jobs
+    from repro_torch.fleet.cluster import family_key, make_pool
+    from repro_torch.fleet.scheduler import fleet_engine
+    from repro_torch.kernels import ops
+
+    pool = make_pool(4, seed=0)
+    eng = fleet_engine(pool, noise=0.01, seed=0)
+    assert eng.device.type == "cuda"
+    ws = [Workload(arch=j.app, terms=family_key(j.app, j.input_size),
+                   constraints=Constraints(max_cores=24 if j.job_id % 2 else 32,
+                                           max_time_s=j.deadline_s - j.arrival_s))
+          for j in build_jobs(32, seed=0)]
+    before = dict(ops.LAUNCHES)
+    plans = eng.plan_many(ws)
+    frontiers = eng.pareto_many(ws)
+    assert ops.LAUNCHES["plan_argmin"] == before["plan_argmin"] + 1
+    assert ops.LAUNCHES["pareto_mask"] == before["pareto_mask"] + 1
+    assert ops.LAUNCHES["rbf_gram"] > before["rbf_gram"]
+    launched = dict(ops.LAUNCHES)
+    assert plans == eng.plan_many(ws, impl="ref")
+    assert frontiers == eng.pareto_many(ws, impl="ref")
+    assert dict(ops.LAUNCHES) == launched  # the plain arms launch nothing
+
+
 # ---------------------------------------------------------------------------
 # flash attention and the SSD chunk block (the serving path's kernels)
 # ---------------------------------------------------------------------------
