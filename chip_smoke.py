@@ -60,6 +60,32 @@ Phases (every failure raises; nothing is caught):
    shape; every call is replayed, kernel against plain version, and each
    kernel is timed on the fleet's own inputs at the smallest and the
    largest of those shapes.
+5c. fleet service and apps: (1) the default run, --quick --horizon 600
+   --burst 3 and --quick --fallback (cheapest-first: plan_many, so
+   plan_argmin) through python -m repro_torch.fleet --service --journal
+   (under build/chip_smoke_service/), each equal bit for bit to phase 5b's
+   lockstep run of the same arguments (and through it held to the JAX
+   golden); (2) each killed with --kill-at before an early, a middle and a
+   late batch and resumed by --resume in a fresh main: the uninterrupted
+   service's schedule bit for bit, in as many batches (a late kill's
+   journal holds a belief, which the recovery re-fits on the card); (3)
+   the JAX package's killed --quick --service journal
+   (tests/data/torch_port_service_journal.json) resumed on the card
+   against the reference's uninterrupted schedule
+   (tests/data/torch_port_service_golden.json) under the near-tie rule and
+   FLEET_PRED_REL. The planning kernels' launches of (1)-(3) are counted
+   from 0, printed by shape, every call replayed kernel against plain
+   version, and added to the launches line (service_launches). Then (4)
+   one fault of each kind on the --quick pool with heartbeats every 150 s
+   (node-down, heartbeat-loss, journal-torn and a resume), each landing
+   and ending with zero lost jobs and the honest ledger; (5) svr.fit_many
+   of three sets alone and in one batch, bit for bit on the card; (6) the
+   four PARSEC apps at DEFAULT_N against tests/data/torch_port_apps_golden.npz
+   (swaptions within 4 joint standard errors: its draws are the card's),
+   then at native sizes (blackscholes 10M options, swaptions 128, raytrace
+   1,024 x 1,024, fluidanimate 8,192 particles, three steps) with the
+   reference's domain properties. Every run, resume and app prints its
+   wall time beside the card's name and power limit.
 6. serve: (a) starcoder2-3b and mamba2-130m at SMOKE width on the card,
    with the kernels, on the JAX package's weights and prompts from
    tests/data/torch_port_serve_golden.npz: prefill logits, every decode
@@ -90,8 +116,8 @@ Phases (every failure raises; nothing is caught):
    scan's forward and the plain SSD VJP at one layer's shape; compression;
    AdamW).
 10. launches: one JSON line with every kernel's launch count on its main
-   path (phases 4, 5 and 5b for the planning kernels, 5b's and rbf_gram's
-   in phase 4b beside them, 6b's kernel arms for the
+   path (phases 4, 5 and 5b for the planning kernels, 5b's, 5c's and
+   rbf_gram's in phase 4b beside them, 6b's kernel arms for the
    serving kernels, phases 8-9's training runs for the codec, each
    counted from 0 just before its path), its error against the plain
    version and its times.
@@ -141,6 +167,29 @@ TABLE1_REL = 1e-3
 # float32 polish summed in another order (5e-5 on the host's parity tests)
 ISTA_PRED_REL = 1e-3
 DEVICE = "cuda"
+# phase 5c: the fleet service and the apps
+SERVICE_DIR = os.path.join(HERE, "build", "chip_smoke_service")
+SERVICE_GOLDEN = os.path.join(HERE, "tests", "data", "torch_port_service_golden.json")
+SERVICE_JOURNAL = os.path.join(HERE, "tests", "data", "torch_port_service_journal.json")
+# phase 5b's runs that phase 5c drives again through the service: the
+# negotiated runs plan with pareto_many, the cheapest-first one with plan_many
+SERVICE_RUNS = ([], ["--quick", "--horizon", "600", "--burst", "3"], ["--quick", "--fallback"])
+# one seed of each fault kind (tests/helpers/torch_faults.py) on the --quick
+# pool, drawn in SERVICE_FAULT_WINDOW_S: each lands (the crash kills an
+# in-flight segment, the silent node is declared down, the commit tears)
+SERVICE_FAULT_SEEDS = {"node-down": 23, "heartbeat-loss": 6, "journal-torn": 0}
+SERVICE_FAULT_WINDOW_S = (100.0, 2500.0)
+SERVICE_HEARTBEAT_S = 150.0
+APPS_GOLDEN = os.path.join(HERE, "tests", "data", "torch_port_apps_golden.npz")
+# the apps against the JAX package, |err| / max |want| per output: the
+# tolerances of tests/test_torch_apps.py, which says why each
+APPS_SCALE_REL = {"blackscholes": 1e-5, "fluidanimate": 1e-5, "raytrace": 5e-4}
+APPS_SE_WIDTH = 4.0
+# sizes the card must work for: PARSEC's native blackscholes (10M options)
+# and swaptions (128, at the reference's 512 trials); raytrace's image side;
+# fluidanimate's particles (its step is all pairs, O(n^2))
+APPS_NATIVE_N = {"blackscholes": 10_000_000, "swaptions": 128, "raytrace": 1024,
+                 "fluidanimate": 8192}
 # flash_attention, kernel vs plain, per element |err| <= rtol |want| + atol:
 # f32 inputs, f32 sums in another order; bf16, both arms round nearly the
 # same f32 value to bf16 once, so they differ by at most one bf16 ulp,
@@ -1028,38 +1077,66 @@ def _fleet_job_rows(sched):
     ]
 
 
+class _Kept:
+    """While open: every ``FleetScheduler`` launch's (engine, SVR model) by
+    (scheduler, job), and every ``SchedulerService`` that drains."""
+
+    def __enter__(self):
+        from repro_torch.fleet.cluster import family_key
+        from repro_torch.fleet.scheduler import FleetScheduler
+        from repro_torch.fleet.service import SchedulerService
+
+        self.surfaces, self.services = {}, []
+        self._launch, self._drain = FleetScheduler._launch, SchedulerService.drain
+        launch, drain, kept = self._launch, self._drain, self
+
+        def launched(sched, placement, **kw):
+            job = placement.job
+            eng = sched._engine_for(sched._device_of(job))
+            key = job.terms if job.terms is not None else family_key(job.app, job.input_size)
+            kept.surfaces[(id(sched), job.job_id)] = (eng, eng._fits[key].model)
+            return launch(sched, placement, **kw)
+
+        def drained(service, **kw):
+            kept.services.append(service)
+            return drain(service, **kw)
+
+        FleetScheduler._launch, SchedulerService.drain = launched, drained
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.fleet.scheduler import FleetScheduler
+        from repro_torch.fleet.service import SchedulerService
+
+        FleetScheduler._launch, SchedulerService.drain = self._launch, self._drain
+
+    def of(self, sched) -> dict:
+        """Job id -> (engine, model) of its last launch under ``sched``."""
+        return {jid: v for (sid, jid), v in self.surfaces.items() if sid == id(sched)}
+
+
 def _fleet_sim_run(argv):
     """``python -m repro_torch.fleet`` with ``argv`` on the card. Returns the
     report, the engine scenario's scheduler, and for each of its jobs the
     (engine, SVR model) its last launch was planned on."""
     from repro_torch.fleet import __main__ as fleet_main
-    from repro_torch.fleet.cluster import family_key
-    from repro_torch.fleet.scheduler import FleetScheduler
 
-    kept, surfaces = {}, {}
-    inner, launch = fleet_main.run_fleet_comparison, FleetScheduler._launch
+    kept = {}
+    inner = fleet_main.run_fleet_comparison
 
     def comparison(*args, **kw):
         report, sched = inner(*args, **kw)
         kept["sched"] = sched
         return report, sched
 
-    def launched(sched, placement, **kw):
-        job = placement.job
-        eng = sched._engine_for(sched._device_of(job))
-        key = job.terms if job.terms is not None else family_key(job.app, job.input_size)
-        surfaces[(id(sched), job.job_id)] = (eng, eng._fits[key].model)
-        return launch(sched, placement, **kw)
-
     fleet_main.run_fleet_comparison = comparison
-    FleetScheduler._launch = launched
     try:
-        report = fleet_main.main(list(argv) + ["--device", DEVICE])
+        with _Kept() as launches:
+            report = fleet_main.main(list(argv) + ["--device", DEVICE])
     finally:
         fleet_main.run_fleet_comparison = inner
-        FleetScheduler._launch = launch
     sched = kept["sched"]
-    return report, sched, {jid: v for (sid, jid), v in surfaces.items() if sid == id(sched)}
+    return report, sched, launches.of(sched)
 
 
 def _surface_energy(torch, np, sched, surface, node_name, f, cores):
@@ -1075,9 +1152,71 @@ def _surface_energy(torch, np, sched, surface, node_name, f, cores):
     return sched._node_by_name(node_name).spec.expected_energy(eng.power, f, cores, t_ref)
 
 
+def _fleet_schedule(sched):
+    """What "the same schedule, bit for bit" compares: the completed jobs'
+    rows and predicted energies, the rounds, refreshes and preemptions,
+    total energy, makespan and misses."""
+    return {
+        "jobs": _fleet_job_rows(sched),
+        "predicted_energy_j": [c.placement.predicted_energy_j for c in sched.completed],
+        "restarts": [c.restarts for c in sched.completed],
+        "rounds": len(sched.rounds),
+        "refreshes": list(sched.telemetry.refreshes),
+        "preemptions": [(p.job_id, p.time_s, p.burned_j) for p in sched.telemetry.preemptions],
+        "energy_j": sched.total_energy_j(),
+        "makespan_s": sched.makespan_s,
+        "misses": sched.deadline_misses(),
+    }
+
+
 def _launch_order(rows):
     """Completed-job rows in launch order: by start time, then job id."""
     return sorted(rows, key=lambda r: (r[4], r[0]))
+
+
+def _check_jobs(torch, np, label, sched, surfaces, want, want_pred):
+    """``sched``'s completed jobs against the rows ``want`` (the golden's
+    ``job_fields``) and their predicted energies ``want_pred``: equal, or
+    the first placement (in launch order) that differs is a near-tie
+    within NEAR_TIE_REL on the port's surface; every job launched before
+    it predicts its energy within FLEET_PRED_REL. Returns the near-tie's
+    line or None, the largest predicted-energy gap, and the jobs placed as
+    in the golden."""
+    rows = _fleet_job_rows(sched)
+    mine_l, want_l = _launch_order(rows), _launch_order(want)
+    first = next((i for i, (a, b) in enumerate(zip(mine_l, want_l)) if a != b),
+                 None if len(rows) == len(want) else min(len(rows), len(want)))
+    if first is None and rows != want:
+        raise AssertionError(f"{label}: the golden's jobs complete in another order")
+    pred = {c.placement.job.job_id: c.placement.predicted_energy_j for c in sched.completed}
+    gold_pred = {r[0]: e for r, e in zip(want, want_pred)}
+    same = [r[0] for r in want_l[:first]]
+    pred_rel = max((abs(pred[j] - gold_pred[j]) / abs(gold_pred[j]) for j in same), default=0.0)
+    if not pred_rel <= FLEET_PRED_REL:
+        raise AssertionError(f"{label}: the jobs placed as in the golden predict their "
+                             f"energy {pred_rel:.3g} off the golden's, over {FLEET_PRED_REL}")
+    near_tie = None
+    if first is not None:
+        mine = {r[0]: r for r in rows}
+        theirs = {r[0]: r for r in want}
+        jids = [r[0] for r in (want_l[first:first + 1] + mine_l[first:first + 1])]
+        moved = [j for j in jids
+                 if j not in mine or j not in theirs or mine[j][1:4] != theirs[j][1:4]]
+        if not moved or moved[0] not in mine or moved[0] not in theirs:
+            raise AssertionError(f"{label}: launch {first} differs from the golden "
+                                 f"without a different placement: {mine_l[first:first + 1]} "
+                                 f"vs {want_l[first:first + 1]}")
+        jid = moved[0]
+        (_, node_p, f_p, c_p), (_, node_g, f_g, c_g) = mine[jid][:4], theirs[jid][:4]
+        e_p = _surface_energy(torch, np, sched, surfaces[jid], node_p, f_p, c_p)
+        e_g = _surface_energy(torch, np, sched, surfaces[jid], node_g, f_g, c_g)
+        rel = abs(e_g - e_p) / e_p
+        near_tie = (f"{label}: job {jid} port ({node_p}, {f_p}, {c_p}) vs golden "
+                    f"({node_g}, {f_g}, {c_g}), port energies {e_p!r} vs {e_g!r}, rel {rel:.3g}")
+        if not rel <= NEAR_TIE_REL:
+            raise AssertionError("placement differs from the golden: " + near_tie)
+        print(f"[near-tie] {near_tie}", flush=True)
+    return near_tie, pred_rel, same
 
 
 def _check_fleet_run(torch, np, gold, report, sched, surfaces):
@@ -1089,40 +1228,9 @@ def _check_fleet_run(torch, np, gold, report, sched, surfaces):
     which no SVR steers, equal the golden's bit for bit. Returns the
     near-tie's line or None, and the largest predicted-energy gap."""
     label = " ".join(gold["argv"]) or "(default)"
-    rows, want = _fleet_job_rows(sched), gold["jobs"]
-    mine_l, want_l = _launch_order(rows), _launch_order(want)
-    first = next((i for i, (a, b) in enumerate(zip(mine_l, want_l)) if a != b),
-                 None if len(rows) == len(want) else min(len(rows), len(want)))
-    if first is None and rows != want:
-        raise AssertionError(f"fleet {label}: the golden's jobs complete in another order")
-    pred = {c.placement.job.job_id: c.placement.predicted_energy_j for c in sched.completed}
-    gold_pred = {r[0]: e for r, e in zip(want, gold["predicted_energy_j"])}
-    same = [r[0] for r in want_l[:first]]
-    pred_rel = max((abs(pred[j] - gold_pred[j]) / abs(gold_pred[j]) for j in same), default=0.0)
-    if not pred_rel <= FLEET_PRED_REL:
-        raise AssertionError(f"fleet {label}: the jobs placed as in the golden predict their "
-                             f"energy {pred_rel:.3g} off the golden's, over {FLEET_PRED_REL}")
-    near_tie = None
-    if first is not None:
-        mine = {r[0]: r for r in rows}
-        theirs = {r[0]: r for r in want}
-        jids = [r[0] for r in (want_l[first:first + 1] + mine_l[first:first + 1])]
-        moved = [j for j in jids
-                 if j not in mine or j not in theirs or mine[j][1:4] != theirs[j][1:4]]
-        if not moved or moved[0] not in mine or moved[0] not in theirs:
-            raise AssertionError(f"fleet {label}: launch {first} differs from the golden "
-                                 f"without a different placement: {mine_l[first:first + 1]} "
-                                 f"vs {want_l[first:first + 1]}")
-        jid = moved[0]
-        (_, node_p, f_p, c_p), (_, node_g, f_g, c_g) = mine[jid][:4], theirs[jid][:4]
-        e_p = _surface_energy(torch, np, sched, surfaces[jid], node_p, f_p, c_p)
-        e_g = _surface_energy(torch, np, sched, surfaces[jid], node_g, f_g, c_g)
-        rel = abs(e_g - e_p) / e_p
-        near_tie = (f"fleet {label}: job {jid} port ({node_p}, {f_p}, {c_p}) vs golden "
-                    f"({node_g}, {f_g}, {c_g}), port energies {e_p!r} vs {e_g!r}, rel {rel:.3g}")
-        if not rel <= NEAR_TIE_REL:
-            raise AssertionError("fleet placement differs from the golden: " + near_tie)
-        print(f"[near-tie] {near_tie}", flush=True)
+    rows = _fleet_job_rows(sched)
+    near_tie, pred_rel, same = _check_jobs(torch, np, f"fleet {label}", sched, surfaces,
+                                           gold["jobs"], gold["predicted_energy_j"])
     for name, g in gold["scenarios"].items():
         s = report.scenarios[name]
         got = {"total_energy_j": s.total_energy_j, "makespan_s": s.makespan_s,
@@ -1151,16 +1259,19 @@ def _check_fleet_run(torch, np, gold, report, sched, surfaces):
 
 
 def phase_fleet_sim(torch, np, smi):
-    """The four golden runs of ``python -m repro_torch.fleet`` on the card."""
+    """The four golden runs of ``python -m repro_torch.fleet`` on the card.
+    Returns each run's engine-scenario schedule (``_fleet_schedule``) by
+    its argv."""
     with open(FLEET_GOLDEN) as f:
         golden = json.load(f)
     if len(golden["runs"]) != 4:
         raise AssertionError(f"{len(golden['runs'])} fleet golden runs, not 4")
     print(f"[fleet] {smi}", flush=True)
-    near_ties, pred_rel = [], 0.0
+    near_ties, pred_rel, schedules = [], 0.0, {}
     for gold in golden["runs"]:
         t0 = time.perf_counter()
         report, sched, surfaces = _fleet_sim_run(gold["argv"])
+        schedules[tuple(gold["argv"])] = _fleet_schedule(sched)
         _stage(f"fleet simulation: python -m repro_torch.fleet {' '.join(gold['argv'])} "
                f"--device {DEVICE} ({len(sched.rounds)} rounds)", t0)
         tie, rel = _check_fleet_run(torch, np, gold, report, sched, surfaces)
@@ -1169,6 +1280,7 @@ def phase_fleet_sim(torch, np, smi):
     print(f"[fleet] {sum(t is None for t in near_ties)} of 4 runs equal the JAX golden, "
           f"{sum(t is not None for t in near_ties)} near-ties; predicted energies within "
           f"{pred_rel!r} of the golden's (limit {FLEET_PRED_REL})", flush=True)
+    return schedules
 
 
 def _round_mantissa(torch, x, bits: int):
@@ -1204,8 +1316,8 @@ def phase_fleet_control(torch, np):
                          f"bits) passed the golden check")
 
 
-def _replay_fleet_calls(torch, name: str, calls) -> float:
-    """Every call the fleet runs made of one planning kernel, again:
+def _replay_fleet_calls(torch, name: str, calls, label: str = "fleet") -> float:
+    """Every call the ``label`` runs made of one planning kernel, again:
     kernel against plain version on the same inputs (rbf_gram within
     RBF_ATOL, the others exactly). Returns the largest error."""
     from repro_torch.kernels import ops
@@ -1224,32 +1336,33 @@ def _replay_fleet_calls(torch, name: str, calls) -> float:
             rows += mask.shape[0]
             feasible += int(mask.any(1).sum())
         if bad:
-            raise AssertionError(f"{name} at the fleet shape {shape}: kernel vs plain, "
+            raise AssertionError(f"{name} at the {label} shape {shape}: kernel vs plain, "
                                  f"max |err| {e}")
         err = max(err, e)
     if name != "rbf_gram" and not feasible:
-        raise AssertionError(f"{name}: the fleet calls hold no row with a feasible point")
-    print(f"[fleet] {name}: the fleet runs' {len(calls)} calls replayed, kernel against "
+        raise AssertionError(f"{name}: the {label} calls hold no row with a feasible point")
+    print(f"[{label}] {name}: the {label} runs' {len(calls)} calls replayed, kernel against "
           f"plain, max |err| {err:.3g}"
           + (f"; {feasible} of {rows} rows with a feasible point" if rows else ""), flush=True)
     return err
 
 
-def phase_fleet_kernels(torch, np, kind, shapes, calls):
+def phase_fleet_kernels(torch, np, kind, shapes, calls, label="fleet simulation",
+                        prefix="fleet"):
     """Each planning kernel against its plain version on every call the
-    fleet runs made, and timed on the fleet's own inputs at the smallest
+    ``label`` runs made, and timed on their own inputs at the smallest
     and the largest shape it launched at (the call with the most rows
-    holding a feasible point). Returns {name: {fleet_* numbers}}."""
+    holding a feasible point). Returns {name: {<prefix>_* numbers}}."""
     check = {"rbf_gram": _check_rbf, "plan_argmin": _check_plan_argmin,
              "pareto_mask": _check_pareto}
     out = {}
     for name in FLEET_KERNELS:
         tally = shapes[name]
         if not tally:
-            raise AssertionError(f"{name} never launched in the fleet runs")
-        print(f"[launches] fleet simulation: {name} {sum(tally.values())} launches by shape "
+            raise AssertionError(f"{name} never launched in the {label} runs")
+        print(f"[launches] {label}: {name} {sum(tally.values())} launches by shape "
               f"{sorted(tally.items(), key=lambda kv: -kv[1])}", flush=True)
-        replay_err = _replay_fleet_calls(torch, name, calls[name])
+        replay_err = _replay_fleet_calls(torch, name, calls[name], prefix)
         by_size = sorted(tally, key=lambda sh: (math.prod(sh), sh))
         small, large = by_size[0], by_size[-1]
 
@@ -1262,14 +1375,335 @@ def phase_fleet_kernels(torch, np, kind, shapes, calls):
         cases = {shape: check[name](torch, np, None, kind, *shape, inputs=inputs(shape))
                  for shape in dict.fromkeys((small, large))}
         # the JSON line carries the largest shape, and the smallest's times
-        out[name] = {f"fleet_{key}": val for key, val in cases[large].items()
+        out[name] = {f"{prefix}_{key}": val for key, val in cases[large].items()
                      if key != "shape"}
-        out[name].update(fleet_shape=list(large), fleet_small_shape=list(small),
-                         fleet_max_abs_err=max([replay_err] + [r["max_abs_err"]
-                                                               for r in cases.values()]),
-                         **{f"fleet_small_{key}": cases[small][key]
+        out[name].update({f"{prefix}_shape": list(large), f"{prefix}_small_shape": list(small),
+                          f"{prefix}_max_abs_err": max([replay_err] + [
+                              r["max_abs_err"] for r in cases.values()])},
+                         **{f"{prefix}_small_{key}": cases[small][key]
                             for key in ("ms", "plain_ms", "bound_ms")})
     return out
+
+
+def _sync(torch):
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def _service_main(torch, argv):
+    """``python -m repro_torch.fleet`` with ``argv`` on the card, through a
+    fresh ``main``, its report kept off the console. Returns (main's
+    result, the ``_Kept`` record, wall seconds ended by a
+    synchronisation)."""
+    import contextlib
+    import io
+
+    from repro_torch.fleet import __main__ as fleet_main
+
+    t0 = time.perf_counter()
+    with _Kept() as kept, contextlib.redirect_stdout(io.StringIO()):
+        result = fleet_main.main(list(argv) + ["--device", DEVICE])
+    _sync(torch)
+    return result, kept, time.perf_counter() - t0
+
+
+def _first_difference(got: dict, want: dict) -> str:
+    key = next(k for k in want if got[k] != want[k])
+    return f"{key}: {got[key]!r} vs {want[key]!r}"
+
+
+def _service_runs(torch, smi, lockstep) -> dict:
+    """Phase 5c parts 1-2: each of SERVICE_RUNS through ``--service
+    --journal`` against phase 5b's lockstep run of the same arguments, bit
+    for bit; then killed before an early, a middle and a late batch
+    (``--kill-at`` the batch before's sim time) and resumed by ``--resume``
+    in a fresh ``main``: the uninterrupted service's schedule bit for bit,
+    in as many batches. Returns {label: wall seconds}."""
+    walls, refits = {}, 0
+    for i, argv in enumerate(SERVICE_RUNS):
+        label = " ".join(argv) or "(default)"
+        path = os.path.join(SERVICE_DIR, f"run{i}.json")
+        _, kept, wall = _service_main(torch, argv + ["--service", "--journal", path])
+        svc = kept.services[-1]
+        sched, n = svc.scheduler, svc.n_batches
+        got = _fleet_schedule(sched)
+        if got != lockstep[tuple(argv)]:
+            raise AssertionError(f"service {label} differs from phase 5b's lockstep run: "
+                                 f"{_first_difference(got, lockstep[tuple(argv)])}")
+        if len(sched.rounds) != n:
+            raise AssertionError(f"service {label}: {len(sched.rounds)} rounds in {n} batches")
+        walls[label] = wall
+        print(f"[service] python -m repro_torch.fleet {label} --service --journal: "
+              f"{len(sched.completed)} jobs in {n} batches, equal bit for bit to phase 5b's "
+              f"lockstep run (held there to the JAX golden); {wall:.3f} s on {smi}", flush=True)
+        batch_s = [r.now for r in sched.rounds]
+        for where, k in (("early", 0), ("middle", n // 2), ("late", n - 1)):
+            kill_path = os.path.join(SERVICE_DIR, f"run{i}-kill{k}.json")
+            kill_at = batch_s[k - 1] if k else -1.0
+            killed, _, kill_wall = _service_main(
+                torch, argv + ["--service", "--journal", kill_path, "--kill-at", repr(kill_at)])
+            with open(kill_path) as f:
+                payload = json.load(f)
+            committed, n_beliefs = payload["n_batches"], len(payload["ledger"]["beliefs"])
+            refits += n_beliefs
+            if killed is not None or committed != k:
+                raise AssertionError(f"service {label}: --kill-at {kill_at!r} committed "
+                                     f"{committed} batches, not {k}")
+            _, kept_r, resume_wall = _service_main(torch, ["--resume", kill_path])
+            resumed = kept_r.services[-1]
+            again = _fleet_schedule(resumed.scheduler)
+            if again != got or resumed.n_batches != n:
+                raise AssertionError(
+                    f"service {label} killed before batch {k} and resumed: "
+                    + (_first_difference(again, got) if again != got
+                       else f"{resumed.n_batches} batches, not {n}"))
+            print(f"[service] {label}: killed before batch {k} of {n} ({where}; "
+                  f"--kill-at {kill_at:.6g}, {kill_wall:.3f} s), python -m repro_torch.fleet "
+                  f"--resume drained it in {resume_wall:.3f} s to the uninterrupted schedule "
+                  f"bit for bit, {resumed.n_batches} batches, {n_beliefs} beliefs re-fitted "
+                  f"at recovery; {smi}", flush=True)
+    if not refits:
+        raise AssertionError("no killed service journal held a belief: the recovery refit "
+                             "never ran on the card")
+    return walls
+
+
+def _service_reference_journal(torch, np, smi) -> float:
+    """Phase 5c part 3: the JAX package's killed ``--quick --service``
+    journal resumed on the card by ``--resume``, against the reference's
+    uninterrupted schedule under the near-tie rule. Returns the largest
+    predicted-energy gap."""
+    import shutil
+
+    with open(SERVICE_GOLDEN) as f:
+        gold = json.load(f)
+    path = os.path.join(SERVICE_DIR, "jax_journal.json")
+    shutil.copy(SERVICE_JOURNAL, path)
+    with open(path) as f:
+        payload = json.load(f)
+    _, kept, wall = _service_main(torch, ["--resume", path])
+    svc = kept.services[-1]
+    sched = svc.scheduler
+    label = "service --quick from the JAX package's journal"
+    near_tie, pred_rel, same = _check_jobs(torch, np, label, sched, kept.of(sched),
+                                           gold["jobs"], gold["predicted_energy_j"])
+    energy, misses = sched.total_energy_j(), sched.deadline_misses()
+    if misses != gold["deadline_misses"]:
+        raise AssertionError(f"{label}: {misses} misses, golden {gold['deadline_misses']}")
+    if near_tie is None and (energy != gold["total_energy_j"]
+                             or svc.n_batches != gold["n_batches"]):
+        raise AssertionError(f"{label}: {energy!r} J in {svc.n_batches} batches, golden "
+                             f"{gold['total_energy_j']!r} J in {gold['n_batches']}")
+    if abs(energy - gold["total_energy_j"]) > FLEET_ENERGY_REL * gold["total_energy_j"]:
+        raise AssertionError(f"{label}: {energy!r} J after the near-tie, golden "
+                             f"{gold['total_energy_j']!r} J")
+    print(f"[service] {label} (killed at sim t={payload['now_s']:.0f} s after "
+          f"{payload['n_batches']} of {gold['n_batches']} batches, before its drift refit; "
+          f"refits on the card after the resume: {sched.telemetry.n_recharacterizations}): "
+          f"{len(sched.completed)} jobs "
+          f"{'equal to' if near_tie is None else 'after a near-tie against'} the JAX package's "
+          f"uninterrupted run; predicted energy of the {len(same)} jobs placed as in it within "
+          f"{pred_rel!r}; {energy!r} J, {svc.n_batches} batches; resumed in {wall:.3f} s on "
+          f"{smi}", flush=True)
+    return pred_rel
+
+
+def phase_service(torch, np, smi, lockstep):
+    """Phase 5c parts 1-3, the planning kernels' main path of the service
+    (its launches are counted around this phase)."""
+    import shutil
+
+    shutil.rmtree(SERVICE_DIR, ignore_errors=True)
+    os.makedirs(SERVICE_DIR)
+    walls = _service_runs(torch, smi, lockstep)
+    pred_rel = _service_reference_journal(torch, np, smi)
+    return walls, pred_rel
+
+
+def _quick_service_trace():
+    """The ``--quick`` run's scheduler on the card, its 12 jobs and its
+    drift event, as ``python -m repro_torch.fleet --quick --service``
+    builds them."""
+    from repro_torch.fleet import __main__ as fleet_main
+
+    cfg = dict(quick=True, nodes=4, seed=0, fallback=False, horizon_s=0.0,
+               migration_cost_j=2000.0)
+    input_sizes = fleet_main._grids(True, 0)[-1]
+    jobs = fleet_main.build_jobs(12, seed=0, input_sizes=input_sizes)
+    drift = [(jobs[len(jobs) // 3].arrival_s + 1.0, fleet_main.DRIFT_APP,
+              fleet_main.DRIFT_FACTOR)]
+    return (lambda: fleet_main._build_scheduler_from_config(cfg, DEVICE)), jobs, drift
+
+
+def phase_service_faults(torch, np, smi):
+    """Phase 5c part 4: one fault of each kind on the ``--quick`` pool with
+    heartbeats every SERVICE_HEARTBEAT_S (tests/helpers/torch_faults.py,
+    the seeds of SERVICE_FAULT_SEEDS): each lands, and the run ends with
+    every job done and the honest ledger (a job's joules are its last
+    segment's plus its carried priors; the fleet's, their sum)."""
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from helpers import torch_faults
+    from repro_torch.fleet.service import JournalTorn, SchedulerService
+
+    build, jobs, drift = _quick_service_trace()
+    nodes = [n.name for n in build().pool]
+    lo, hi = SERVICE_FAULT_WINDOW_S
+    for kind, seed in SERVICE_FAULT_SEEDS.items():
+        fault = torch_faults.single_fault_schedule(seed, nodes=nodes, t_lo_s=lo, t_hi_s=hi)
+        if fault.kind != kind:
+            raise AssertionError(f"fault seed {seed} draws {fault.kind}, not {kind}")
+        path = os.path.join(SERVICE_DIR, f"fault-{kind}.json")
+        t0 = time.perf_counter()
+        sched = build()
+        svc = SchedulerService(sched, journal=path, heartbeat_period_s=SERVICE_HEARTBEAT_S)
+        torch_faults.inject(svc, fault)
+        try:
+            svc.run(jobs, drift_events=drift)
+            if kind == "node-down":
+                landed = any(p.from_node == fault.node for p in sched.telemetry.preemptions)
+            else:
+                landed = kind == "heartbeat-loss" and not svc.managers[fault.node].available
+        except JournalTorn:
+            sched = build()
+            svc = SchedulerService.resume(path, sched, heartbeat_period_s=SERVICE_HEARTBEAT_S)
+            svc.drain()
+            landed = True
+        _sync(torch)
+        wall = time.perf_counter() - t0
+        done = sched.completed
+        if not landed:
+            raise AssertionError(f"fault {fault} did not land")
+        if sorted(c.placement.job.job_id for c in done) != sorted(j.job_id for j in jobs):
+            raise AssertionError(f"fault {kind}: jobs lost")
+        for c in done:
+            if not (c.total_energy_j == c.result.energy_j + c.prior_energy_j
+                    and c.total_energy_j > 0):
+                raise AssertionError(f"fault {kind}: job {c.placement.job.job_id}'s ledger")
+        if not math.isclose(sched.total_energy_j(), sum(c.total_energy_j for c in done)):
+            raise AssertionError(f"fault {kind}: the fleet total is not the jobs' sum")
+        print(f"[service] fault {kind} (seed {seed}, sim t={fault.time_s:.0f} s, node "
+              f"{fault.node}): landed; {len(done)} of {len(jobs)} jobs done, "
+              f"{sum(c.restarts for c in done)} restarts, carried "
+              f"{sum(c.prior_energy_j for c in done):.6g} J, honest ledger; {wall:.3f} s on "
+              f"{smi}", flush=True)
+
+
+def phase_service_batches(torch, np):
+    """Phase 5c part 5: ``svr.fit_many`` of three sets alone and in one
+    batch predict a grid bit for bit on the card (the recovery refit's
+    soundness)."""
+    from repro_torch.core import svr
+    from repro_torch.core.engine import ENGINE_FIT_KW
+
+    rng = np.random.default_rng(0)
+    sets = []
+    for i in range(3):
+        x = np.asarray(rng.uniform([1.0, 1], [3.5, 32], (12, 2)), np.float32)
+        y = np.asarray(10.0 / x[:, 0] + 50.0 / x[:, 1] + i, np.float32)
+        sets.append((x, y))
+    grid = np.asarray(rng.uniform([1.0, 1], [3.5, 32], (40, 2)), np.float32)
+    batched = svr.fit_many(sets, method="auto", device=DEVICE, **ENGINE_FIT_KW)
+    for i in range(3):
+        alone = svr.fit_many([sets[i]], method="auto", device=DEVICE, **ENGINE_FIT_KW)
+        if not torch.equal(svr.predict_each(alone, [grid])[0],
+                           svr.predict_each([batched[i]], [grid])[0]):
+            raise AssertionError(f"fit_many on the card: set {i} alone and in a batch differ")
+    print("[service] fit_many on the card: 3 sets alone and in one batch predict a "
+          "40-point grid bit for bit", flush=True)
+
+
+def _apps_time(torch, fn):
+    _sync(torch)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(torch)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_apps(torch, np, smi):
+    """Phase 5c part 8: the four PARSEC apps on the card. At DEFAULT_N
+    against tests/data/torch_port_apps_golden.npz (the JAX package's):
+    within APPS_SCALE_REL of each output's largest magnitude, swaptions
+    (its draws are the card's generator's) each price within APPS_SE_WIDTH
+    joint standard errors. Then at APPS_NATIVE_N: finite, with the
+    reference's domain properties. Each is timed on its second call, host
+    clock to a synchronisation."""
+    from repro_torch.apps import APPS, blackscholes
+
+    with np.load(APPS_GOLDEN) as f:
+        gold = {k: f[k] for k in f.files}
+    for name, mod in sorted(APPS.items()):
+        inputs = mod.make_inputs(mod.DEFAULT_N, seed=0, device=DEVICE)
+        mod.run(inputs, device=DEVICE)  # warm: the first call loads the card's kernels
+        out, ms = _apps_time(torch, lambda: mod.run(inputs, device=DEVICE))
+        got = {k: v.cpu().numpy() for k, v in out.items()}
+        if name == "swaptions":
+            want_p, want_se = gold["swaptions/price"], gold["swaptions/stderr"]
+            width = APPS_SE_WIDTH * np.sqrt(got["stderr"] ** 2 + want_se ** 2)
+            worst = float((np.abs(got["price"] - want_p) / width).max())
+            if not worst <= 1.0:
+                raise AssertionError(f"swaptions: a price {worst:.3g} of its limit off the JAX "
+                                     f"package's")
+            note = f"prices within {worst:.3g} of {APPS_SE_WIDTH:g} joint standard errors"
+        else:
+            errs = {}
+            for key, want in ((k[len(name) + 1:], v) for k, v in gold.items()
+                              if k.startswith(name + "/")):
+                errs[key] = float(np.abs(got[key] - want).max() / np.abs(want).max())
+                if not errs[key] <= APPS_SCALE_REL[name]:
+                    raise AssertionError(f"{name} {key}: {errs[key]:.3g} of its scale off the "
+                                         f"JAX package's, over {APPS_SCALE_REL[name]}")
+            note = "max |err| / scale " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        print(f"[apps] {name} n={mod.DEFAULT_N} against the JAX golden: {note} (limit "
+              f"{APPS_SCALE_REL.get(name, 'statistical')}); {ms:.3f} ms on {smi}", flush=True)
+
+    for name, n in APPS_NATIVE_N.items():
+        mod = APPS[name]
+        inputs = mod.make_inputs(n, seed=0, device=DEVICE)
+        if name == "fluidanimate":  # three steps, as the reference's property test
+            def call(state=inputs):
+                for _ in range(3):
+                    state = {**state, **mod.run({"pos": state["pos"], "vel": state["vel"]},
+                                                device=DEVICE)}
+                return state
+        else:
+            def call():
+                return mod.run(inputs, device=DEVICE)
+        call()  # warm: the allocator's pool at this size
+        out, ms = _apps_time(torch, call)
+        for key, val in out.items():
+            if torch.is_tensor(val) and val.is_floating_point() and not bool(
+                    torch.isfinite(val).all()):
+                raise AssertionError(f"{name} n={n}: non-finite {key}")
+        if name == "blackscholes":
+            price = out["price"]
+            bound = torch.where(inputs["is_call"], inputs["spot"], inputs["strike"])
+            calls = blackscholes.run({**inputs, "is_call": torch.ones_like(inputs["is_call"])},
+                                     device=DEVICE)["price"].double()
+            puts = blackscholes.run({**inputs, "is_call": torch.zeros_like(inputs["is_call"])},
+                                    device=DEVICE)["price"].double()
+            s, k, r, t = (inputs[c].double() for c in ("spot", "strike", "rate", "tte"))
+            parity = float((calls - puts - (s - k * torch.exp(-r * t))).abs().max())
+            ok = bool((price >= -1e-3).all() and (price <= bound + 1e-3).all()) and parity < 2e-2
+            note = f"put-call parity within {parity:.3g}, 0 <= price <= bound"
+        elif name == "swaptions":
+            price, se = out["price"], out["stderr"]
+            ok = bool((price >= -1e-6).all() and (se >= 0).all()
+                      and (se < torch.clamp_min(price, 1e-4) * 5 + 1e-3).all())
+            note = (f"{tuple(price.shape)[0]} prices x {mod.TRIALS} trials, >= 0, stderr "
+                    f"max {float(se.max()):.3g}")
+        elif name == "raytrace":
+            img = out["image"]
+            ok = (tuple(img.shape) == (n, n, 3) and bool((img >= 0).all() and (img <= 1).all())
+                  and float(img.std()) > 0.01)
+            note = f"({n}, {n}, 3) image in [0, 1], std {float(img.std()):.3g}"
+        else:
+            pos = out["pos"]
+            ok = bool((pos >= 0).all() and (pos <= 1.0).all() and (out["density"] > 0).all())
+            note = "3 steps, in the box, density > 0"
+        if not ok:
+            raise AssertionError(f"{name} n={n}: a property failed ({note})")
+        print(f"[apps] {name} n={n:,}: {note}; {ms:.3f} ms on {smi}", flush=True)
 
 
 def _golden_params(golden, prefix: str) -> dict:
@@ -1803,7 +2237,9 @@ def main() -> int:
                                  f"times, not {n}")
     results["rbf_gram"]["table1_launches"] = t1_launches["rbf_gram"]
     sim_calls = {}
-    sim_launches, sim_shapes = _counted(ops, lambda: phase_fleet_sim(torch, np, smi), sim_calls)
+    lockstep = {}
+    sim_launches, sim_shapes = _counted(
+        ops, lambda: lockstep.update(phase_fleet_sim(torch, np, smi)), sim_calls)
     t0 = _stage("fleet simulation: four runs of python -m repro_torch.fleet", t0)
     phase_fleet_control(torch, np)
     t0 = _stage("fleet simulation: the control", t0)
@@ -1816,6 +2252,25 @@ def main() -> int:
         results[name].update(numbers, fleet_launches=sim_launches[name])
         launches[name] += sim_launches[name]
     t0 = _stage("fleet simulation: the planning kernels at its shapes", t0)
+    service_calls = {}
+    service_launches, service_shapes = _counted(
+        ops, lambda: phase_service(torch, np, smi, lockstep), service_calls)
+    t0 = _stage("fleet service: service runs, kills and resumes, the JAX journal", t0)
+    for name, tally in service_shapes.items():
+        if sum(tally.values()) != service_launches[name]:
+            raise AssertionError(f"{name} in the fleet service: {service_launches[name]} "
+                                 f"launches, {sum(tally.values())} calls by shape")
+    print(f"[launches] fleet service: {json.dumps(service_launches)}", flush=True)
+    for name, numbers in phase_fleet_kernels(torch, np, kind, service_shapes, service_calls,
+                                             label="fleet service", prefix="service").items():
+        results[name].update(numbers, service_launches=service_launches[name])
+        launches[name] += service_launches[name]
+    t0 = _stage("fleet service: the planning kernels at its shapes", t0)
+    phase_service_faults(torch, np, smi)
+    phase_service_batches(torch, np)
+    t0 = _stage("fleet service: faults and fit_many's batches", t0)
+    phase_apps(torch, np, smi)
+    t0 = _stage("apps: the JAX golden and native sizes", t0)
     phase_serve_golden(torch, np)
     t0 = _stage("serve: SMOKE golden on the card", t0)
     serve_launches = phase_serve_full(torch, np)
@@ -1867,7 +2322,7 @@ def main() -> int:
         # ssd_chunks' training) and flash_attention's lse error
         entry.update({key: val for key, val in r.items()
                       if key.startswith(("decode_", "train_", "lse_", "fp32_", "d256_",
-                                         "pairs_", "table1_", "fleet_"))})
+                                         "pairs_", "table1_", "fleet_", "service_"))})
         if name in ("flash_attention", "ssd_chunks"):
             entry["train_launches"] = train_launches[name]
         line.append(entry)

@@ -21,18 +21,26 @@ full intake → negotiate → migrate loop runs on those records. Stock
 governors need the node profile table, so the artifact comparison is
 engine vs engine-fallback.
 
-``--service``, ``--journal``, ``--kill-at`` and ``--resume`` (the
-event-driven, journaled ``SchedulerService``) are accepted and raise
-``NotImplementedError``: the service is not ported yet (ROADMAP A6).
+``--service`` pumps the engine scenario through the event-driven
+``SchedulerService`` (bitwise-identical schedule by contract) instead of
+the lockstep comparison loop. ``--journal FILE`` makes the run durable
+(one atomic snapshot per event batch); ``--kill-at T`` simulates a crash
+at sim time T (the process "dies", the journal survives), and
+``--resume FILE`` restarts a killed run from its journal and drains it
+to completion — the resumed schedule matches the uninterrupted one
+bitwise. The journal's format is the JAX package's, so ``--resume`` also
+takes a journal that ``python -m repro.fleet`` wrote.
 
 The planning engines run on the CUDA device unless ``--device cpu`` asks
-for the host.
+for the host; ``--resume`` takes the device from its own command line
+(the journal's run configuration holds no device).
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 from typing import List, Optional, Sequence
 
@@ -42,7 +50,7 @@ from repro_torch import obs
 from repro_torch.core import tpu_power
 from repro_torch.core.characterize import workloads_from_artifacts
 from repro_torch.core.node_sim import F_MAX, FREQ_GRID, PROFILES
-from repro_torch.fleet.cluster import TermsFamily, make_pool
+from repro_torch.fleet.cluster import TermsFamily, make_mixed_pool, make_pool
 from repro_torch.fleet.report import (
     build_comparison,
     run_engine_fleet,
@@ -56,6 +64,7 @@ from repro_torch.fleet.scheduler import (
     LookaheadPolicy,
     MigrationPolicy,
     fleet_engine,
+    tpu_fleet_engine,
 )
 
 DRIFT_APP = "raytrace"
@@ -292,8 +301,9 @@ def run_artifact_fleet(
 
 
 def _grids(quick: bool, seed: int):
-    """The run's grid configuration: engine, TPU-engine and refit grids
-    and the trace's input sizes."""
+    """The run's grid configuration — shared by the fresh-run path and
+    ``--resume`` (a resumed scheduler must be built from the SAME grids
+    or the replayed schedule silently diverges)."""
     if quick:
         engine_kw = dict(
             freqs=tuple(float(f) for f in FREQ_GRID[::2]),
@@ -316,6 +326,81 @@ def _grids(quick: bool, seed: int):
         char_cores = None
         input_sizes = (1.0, 2.0, 3.0)
     return engine_kw, tpu_kw, char_freqs, char_cores, input_sizes
+
+
+def _build_scheduler_from_config(cfg: dict, device=None):
+    """Rebuild the pool/engine/scheduler a journaled run was using from
+    its snapshot ``config`` blob (the journal holds *state*; the config
+    holds how to re-create the objects the state loads into), its
+    engines on ``device``."""
+    from repro_torch.fleet.scheduler import FleetScheduler, Negotiator
+
+    engine_kw, tpu_kw, char_freqs, char_cores, _ = _grids(
+        bool(cfg["quick"]), int(cfg["seed"])
+    )
+    engine_kw["device"] = tpu_kw["device"] = device
+    if cfg.get("mixed"):
+        pool = make_mixed_pool(
+            n_cpu=int(cfg["n_cpu"]),
+            n_tpu=int(cfg["n_tpu"]),
+            seed=int(cfg["seed"]),
+        )
+        engine = {
+            "cpu": fleet_engine(pool, **engine_kw),
+            "tpu": tpu_fleet_engine(pool, **tpu_kw),
+        }
+        rep = engine[pool.reference.spec.device]
+    else:
+        pool = make_pool(int(cfg["nodes"]), seed=int(cfg["seed"]))
+        engine = rep = fleet_engine(pool, **engine_kw)
+    fallback = bool(cfg["fallback"])
+    horizon_s = float(cfg["horizon_s"])
+    return FleetScheduler(
+        pool,
+        engine,
+        char_freqs=char_freqs,
+        char_cores=char_cores,
+        negotiator=None if fallback else Negotiator(pool, rep.power),
+        migration=(
+            None
+            if fallback
+            else MigrationPolicy(cost_j=float(cfg["migration_cost_j"]))
+        ),
+        lookahead=(
+            LookaheadPolicy(horizon_s=horizon_s) if horizon_s > 0 else None
+        ),
+    )
+
+
+def _resume(path: str, device=None):
+    """``--resume FILE``: restart a killed ``--service --journal`` run
+    from its last committed snapshot, its engines on ``device``, and
+    drain it to completion."""
+    from repro_torch.fleet.service import Journal, SchedulerService
+
+    payload = Journal.load(path)
+    cfg = payload["config"]
+    if not cfg:
+        raise SystemExit(
+            f"{path}: journal has no run config — it was not written by "
+            "`python -m repro_torch.fleet --service --journal` (or "
+            "`python -m repro.fleet`)"
+        )
+    sched = _build_scheduler_from_config(cfg, device)
+    service = SchedulerService.resume(path, sched)
+    obs.log(
+        f"resumed from {path}: sim t={payload['now_s']:.0f}s, "
+        f"{payload['n_batches']} batches committed, "
+        f"{len(payload['jobs']['completed'])} jobs already done"
+    )
+    service.drain()
+    obs.log(
+        f"service (resumed): {len(sched.completed)} jobs, "
+        f"{sched.total_energy_j():.0f} J, makespan {sched.makespan_s:.0f} s, "
+        f"{sched.deadline_misses()} deadline misses, "
+        f"{service.n_batches} batches total"
+    )
+    return sched
 
 
 def main(argv: Optional[Sequence[str]] = None):
@@ -373,14 +458,13 @@ def main(argv: Optional[Sequence[str]] = None):
         action="store_true",
         help="run the engine scenario on the event-driven SchedulerService "
         "(bitwise-identical schedule to the lockstep loop) instead of the "
-        "full comparison; not ported yet (ROADMAP A6)",
+        "full comparison",
     )
     ap.add_argument(
         "--journal",
         metavar="FILE",
         help="with --service: commit one atomic state snapshot per event "
-        "batch to FILE, so a killed run can be restarted with --resume; "
-        "not ported yet (ROADMAP A6)",
+        "batch to FILE, so a killed run can be restarted with --resume",
     )
     ap.add_argument(
         "--kill-at",
@@ -388,15 +472,14 @@ def main(argv: Optional[Sequence[str]] = None):
         default=None,
         metavar="T",
         help="with --service --journal: simulate a crash at sim time T "
-        "(the journal survives; restart with --resume); not ported yet "
-        "(ROADMAP A6)",
+        "(the journal survives; restart with --resume)",
     )
     ap.add_argument(
         "--resume",
         metavar="FILE",
         help="restart a killed --service run from its journal and drain "
         "it to completion (the resumed schedule matches the uninterrupted "
-        "one bitwise); not ported yet (ROADMAP A6)",
+        "one bitwise); takes a journal of either package",
     )
     ap.add_argument(
         "--device",
@@ -413,12 +496,18 @@ def main(argv: Optional[Sequence[str]] = None):
     )
     args = ap.parse_args(argv)
 
-    if args.service or args.journal or args.kill_at is not None or args.resume:
-        raise NotImplementedError(
-            "--service, --journal, --kill-at and --resume need the "
-            "event-driven SchedulerService, which is not ported yet "
-            "(ROADMAP A6)"
-        )
+    if args.resume:
+        if args.service or args.artifacts or args.kill_at is not None:
+            ap.error("--resume takes only the journal FILE (and --device)")
+        return _resume(args.resume, args.device)
+    if args.kill_at is not None and not (args.service and args.journal):
+        ap.error("--kill-at needs --service and --journal (nothing to "
+                 "resume from otherwise)")
+    if args.journal and not args.service:
+        ap.error("--journal needs --service")
+    if args.service and args.artifacts:
+        ap.error("--service cannot journal artifact jobs (Job.terms is "
+                 "not serializable); drop one of the two")
     if args.mixed and args.artifacts:
         ap.error("--mixed builds its own model-zoo TPU trace; it cannot "
                  "also take --artifacts")
@@ -470,6 +559,77 @@ def main(argv: Optional[Sequence[str]] = None):
                 negotiate=negotiate,
                 lookahead=lookahead,
             )
+        elif args.service:
+            from repro_torch.fleet.service import ServiceKilled
+
+            if args.mixed:
+                jobs = build_mixed_jobs(
+                    n_jobs, seed=args.seed, input_sizes=input_sizes
+                )
+                pool = make_mixed_pool(
+                    n_cpu=n_cpu, n_tpu=n_tpu, seed=args.seed
+                )
+                engine = {
+                    "cpu": fleet_engine(pool, **engine_kw),
+                    "tpu": tpu_fleet_engine(pool, **tpu_kw),
+                }
+            else:
+                jobs = build_jobs(
+                    n_jobs,
+                    seed=args.seed,
+                    input_sizes=input_sizes,
+                    burst=args.burst,
+                )
+                pool = make_pool(args.nodes, seed=args.seed)
+                engine = fleet_engine(pool, **engine_kw)
+            drift_t = jobs[len(jobs) // 3].arrival_s + 1.0
+            drift_events = [(drift_t, DRIFT_APP, DRIFT_FACTOR)]
+            service_kw = dict(
+                journal=args.journal,
+                kill_at_s=args.kill_at,
+                # everything --resume needs to rebuild these objects
+                config=dict(
+                    quick=args.quick,
+                    nodes=args.nodes,
+                    seed=args.seed,
+                    fallback=args.fallback,
+                    horizon_s=args.horizon,
+                    migration_cost_j=args.migration_cost_j,
+                    mixed=args.mixed,
+                    n_cpu=n_cpu,
+                    n_tpu=n_tpu,
+                ),
+            )
+            try:
+                stats, sched = run_engine_fleet(
+                    pool,
+                    jobs,
+                    drift_events=drift_events,
+                    engine=engine,
+                    char_freqs=char_freqs,
+                    char_cores=char_cores,
+                    negotiate=negotiate,
+                    migration=migration,
+                    lookahead=lookahead,
+                    service=True,
+                    service_kw=service_kw,
+                    name="engine-service",
+                )
+            except ServiceKilled as exc:
+                obs.log(
+                    f"service killed at sim t={exc.time_s:.0f}s after "
+                    f"{exc.n_batches} batches; resume with: "
+                    f"python -m repro_torch.fleet --resume {exc.journal_path}"
+                )
+                return None
+            obs.log(
+                f"service: {stats.n_jobs} jobs, {stats.total_energy_j:.0f} J, "
+                f"makespan {stats.makespan_s:.0f} s, "
+                f"{stats.deadline_misses} deadline misses, "
+                f"{len(sched.rounds)} reaction rounds"
+                + (f"; journal: {args.journal}" if args.journal else "")
+            )
+            report = None  # single-scenario run: no comparison table
         elif args.mixed:
             jobs = build_mixed_jobs(
                 n_jobs, seed=args.seed, input_sizes=input_sizes
@@ -524,23 +684,24 @@ def main(argv: Optional[Sequence[str]] = None):
                 include_myopic=lookahead is not None,
             )
 
-        n_rounds = len(sched.rounds)
-        n_planned = sum(r.planned for r in sched.rounds)
-        mode = "fallback" if args.fallback else "negotiate+migrate"
-        if lookahead is not None:
-            mode += f"+lookahead({args.horizon:.0f}s)"
-        obs.log(
-            f"fleet: {args.nodes} nodes, {len(jobs)} jobs, "
-            f"{n_rounds} rounds ({n_planned} with planning, {mode}), "
-            f"drift {drift_app}x{DRIFT_FACTOR} @t={drift_t:.0f}s"
-        )
-        obs.log(report.table())
-        ok = report.engine_beats_all(tol=0.05)
-        refits = report.engine.recharacterizations
-        obs.log(
-            f"engine <= every baseline fleet (tol 5%): {ok}; "
-            f"drift-triggered re-characterizations: {refits}"
-        )
+        if report is not None:
+            n_rounds = len(sched.rounds)
+            n_planned = sum(r.planned for r in sched.rounds)
+            mode = "fallback" if args.fallback else "negotiate+migrate"
+            if lookahead is not None:
+                mode += f"+lookahead({args.horizon:.0f}s)"
+            obs.log(
+                f"fleet: {args.nodes} nodes, {len(jobs)} jobs, "
+                f"{n_rounds} rounds ({n_planned} with planning, {mode}), "
+                f"drift {drift_app}x{DRIFT_FACTOR} @t={drift_t:.0f}s"
+            )
+            obs.log(report.table())
+            ok = report.engine_beats_all(tol=0.05)
+            refits = report.engine.recharacterizations
+            obs.log(
+                f"engine <= every baseline fleet (tol 5%): {ok}; "
+                f"drift-triggered re-characterizations: {refits}"
+            )
     if args.trace:
         payload = obs.write_trace(args.trace, rec, sched=sched)
         obs.log(
@@ -549,9 +710,10 @@ def main(argv: Optional[Sequence[str]] = None):
             f"-> {args.trace} (summarize: python -m repro_torch.obs {args.trace})"
         )
     if args.json:
+        doc = report.to_json() if report is not None else dataclasses.asdict(stats)
         with open(args.json, "w") as f:
-            json.dump(report.to_json(), f, indent=1, default=float)
-    return report
+            json.dump(doc, f, indent=1, default=float)
+    return report if report is not None else stats
 
 
 if __name__ == "__main__":

@@ -274,14 +274,11 @@ def run_engine_fleet(
     hold capacity with tentative reservations. Per-job energies include
     preempted partial segments and migration charges.
 
-    ``service=True`` (the event-driven ``SchedulerService``, with
-    ``service_kw`` for its constructor) raises ``NotImplementedError``:
-    the service is not ported yet (ROADMAP A6).
+    ``service=True`` pumps the run through the event-driven
+    ``SchedulerService`` instead of the lockstep loop (bitwise-identical
+    schedule by contract); ``service_kw`` passes through to its
+    constructor (``journal=...``, ``kill_at_s=...``, ...).
     """
-    if service:
-        raise NotImplementedError(
-            "the event-driven SchedulerService is not ported yet (ROADMAP A6)"
-        )
     engine = engine if engine is not None else fleet_engine(pool)
     # `engine` may be a per-device dict (mixed pools); the negotiator knob
     # donor just needs SOME power model — FleetScheduler rebuilds one
@@ -304,7 +301,15 @@ def run_engine_fleet(
     # share one recording in a comparison run)
     reg = obs.metrics_registry()
     before = reg.snapshot() if reg.enabled else None
-    completed = sched.run(jobs, drift_events=drift_events)
+    if service:
+        # deferred import: the service layer is optional machinery on
+        # top of the scheduler, not a report dependency
+        from repro_torch.fleet.service import SchedulerService
+
+        svc = SchedulerService(sched, **dict(service_kw or {}))
+        completed = svc.run(jobs, drift_events=drift_events)
+    else:
+        completed = sched.run(jobs, drift_events=drift_events)
     rollup = (
         obs_metrics.diff(before, reg.snapshot()) if reg.enabled else {}
     )

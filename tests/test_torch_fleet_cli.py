@@ -8,7 +8,9 @@ scenario. The committed golden that ``chip_smoke.py`` holds the card to
 must equal the live reference's runs, so it cannot go stale. Also: the
 artifact intake (``workloads_from_artifacts``, ``--artifacts``), a mixed
 CPU + TPU pool with explicit TPU terms, ``--trace`` with ``python -m
-repro_torch.obs``, the planner, the entry points that are not ported, and
+repro_torch.obs``, the planner, the service flags (``--service``,
+``--journal``, ``--kill-at``, ``--resume``) against the reference CLI's
+printed lines, the entry points that are not ported, and
 ``chip_smoke.py``'s golden check of a fleet run, run on the host.
 """
 
@@ -157,6 +159,31 @@ def test_smoke_fleet_check_finds_the_first_divergence_in_launch_order(
     monkeypatch.setattr(smoke, "NEAR_TIE_REL", 0.0)
     with pytest.raises(AssertionError, match="placement differs from the golden"):
         smoke._check_fleet_run(torch, np, moved, rep, sched, surfaces)
+
+
+def test_smoke_service_phase_on_the_host(smoke, smoke_quick, monkeypatch, tmp_path, capsys):
+    """Phase 5c on the host, at the ``--quick`` run: the service against
+    the lockstep run, kills and resumes, the JAX package's journal, the
+    faults, fit_many's batches and the apps (native sizes cut to the
+    host's); a lockstep schedule moved by one joule is refused."""
+    _, _, sched, _ = smoke_quick
+    monkeypatch.setattr(smoke, "SERVICE_RUNS", (["--quick"],))
+    monkeypatch.setattr(smoke, "SERVICE_DIR", str(tmp_path))
+    monkeypatch.setattr(smoke, "APPS_NATIVE_N", {"blackscholes": 10_000, "swaptions": 4,
+                                                 "raytrace": 32, "fluidanimate": 216})
+    lockstep = {("--quick",): smoke._fleet_schedule(sched)}
+    walls, pred_rel = smoke.phase_service(torch, np, "host", lockstep)
+    assert set(walls) == {"--quick"} and 0 < pred_rel <= smoke.FLEET_PRED_REL
+    smoke.phase_service_faults(torch, np, "host")
+    smoke.phase_service_batches(torch, np)
+    smoke.phase_apps(torch, np, "host")
+    out = capsys.readouterr().out
+    assert out.count("bit for bit") == 5 and out.count("[apps]") == 8
+    assert "equal to the JAX package's uninterrupted run" in out
+    moved = copy.deepcopy(lockstep)
+    moved[("--quick",)]["jobs"][0][6] += 1.0
+    with pytest.raises(AssertionError, match="differs from phase 5b's lockstep run"):
+        smoke._service_runs(torch, "host", moved)
 
 
 # ---------------------------------------------------------------------------
@@ -336,12 +363,49 @@ def test_planner_plans_an_artifact_like_the_reference(tmp_path):
         mine.plan_for_workload("starcoder2-3b", SHAPES["train_4k"])  # terms_analytic
 
 
-@pytest.mark.parametrize("flags", [["--service"], ["--service", "--journal", "j.json"],
-                                   ["--service", "--journal", "j.json", "--kill-at", "100"],
-                                   ["--resume", "j.json"]])
-def test_service_flags_raise_naming_a6(flags):
-    with pytest.raises(NotImplementedError, match="A6"):
-        port_main.main(["--quick", "--device", CPU] + flags)
+def _service_lines(module, argv):
+    """``module.main(argv)``'s printed ``service`` lines, the journal's
+    path written as FILE."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        module.main(argv)
+    lines = [ln for ln in buf.getvalue().splitlines()
+             if ln.startswith(("service", "resumed from"))]
+    journal = argv[argv.index("--journal") + 1] if "--journal" in argv else (
+        argv[argv.index("--resume") + 1] if "--resume" in argv else None)
+    return [ln.replace(journal, "FILE") if journal else ln for ln in lines]
+
+
+SERVICE_RUNS = {
+    "service": [["--quick", "--service"]],
+    "journal": [["--quick", "--service", "--journal", "{j}"]],
+    "kill-resume": [["--quick", "--service", "--journal", "{j}", "--kill-at", "1500"],
+                    ["--resume", "{j}"]],
+}
+
+
+@pytest.mark.parametrize("run", sorted(SERVICE_RUNS) + ["mixed"])
+def test_service_flags_print_the_reference_service_line(run, tmp_path):
+    """``--service``, ``--service --journal``, ``--kill-at`` then
+    ``--resume``: the port prints the reference CLI's lines, word for
+    word; ``--service --mixed`` waits on the model zoo, as ``--mixed``
+    does."""
+    if run == "mixed":
+        with pytest.raises(NotImplementedError, match="A8"):
+            port_main.main(["--quick", "--service", "--mixed", "--device", CPU])
+        return
+    for step in SERVICE_RUNS[run]:
+        mine = [a.format(j=str(tmp_path / "port.json")) for a in step]
+        theirs = [a.format(j=str(tmp_path / "ref.json")) for a in step]
+        got = _service_lines(port_main, mine + ["--device", CPU])
+        want = _service_lines(ref_main, theirs)
+        want = [ln.replace("python -m repro.fleet", "python -m repro_torch.fleet") for ln in want]
+        assert got == want and got, step
+    if run != "service":
+        port_doc = json.loads((tmp_path / "port.json").read_text())
+        ref_doc = json.loads((tmp_path / "ref.json").read_text())
+        assert port_doc["config"] == ref_doc["config"]
+        assert port_doc["n_batches"] == ref_doc["n_batches"]
 
 
 def test_mixed_without_an_artifact_reaches_terms_analytic():
@@ -353,9 +417,14 @@ def test_mixed_without_an_artifact_reaches_terms_analytic():
 
 def test_service_mode_and_default_device_raise():
     pool = cluster.make_pool(4, seed=0)
-    with pytest.raises(NotImplementedError, match="A6"):
-        report.run_engine_fleet(pool, [], service=True)
+    stats, _ = report.run_engine_fleet(
+        pool, [], engine=scheduler.fleet_engine(pool, device=CPU), service=True)
+    assert stats.n_jobs == 0
     if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            report.run_engine_fleet(pool, [], service=True)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            port_main.main(["--quick", "--service"])
         with pytest.raises(RuntimeError, match="no CUDA device"):
             scheduler.fleet_engine(pool)
         with pytest.raises(RuntimeError, match="no CUDA device"):

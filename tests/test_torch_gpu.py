@@ -264,6 +264,59 @@ def test_fleet_engine_plans_a_round_of_32_jobs_on_the_card(cuda):
     assert dict(ops.LAUNCHES) == launched  # the plain arms launch nothing
 
 
+def test_fit_many_is_batch_composition_independent_on_the_card(cuda):
+    """The service's recovery refit re-fits a journaled set in another
+    batch than the live refit did: the models must agree bit for bit."""
+    from repro_torch.core import svr
+    from repro_torch.core.engine import ENGINE_FIT_KW
+
+    rng = np.random.default_rng(0)
+    sets = []
+    for i in range(3):
+        x = np.asarray(rng.uniform([1.0, 1], [3.5, 32], (12, 2)), np.float32)
+        y = np.asarray(10.0 / x[:, 0] + 50.0 / x[:, 1] + i, np.float32)
+        sets.append((x, y))
+    grid = np.asarray(rng.uniform([1.0, 1], [3.5, 32], (40, 2)), np.float32)
+    batched = svr.fit_many(sets, method="auto", device=cuda, **ENGINE_FIT_KW)
+    for i in range(3):
+        alone = svr.fit_many([sets[i]], method="auto", device=cuda, **ENGINE_FIT_KW)
+        assert torch.equal(svr.predict_each(alone, [grid])[0],
+                           svr.predict_each([batched[i]], [grid])[0])
+
+
+def test_quick_service_kill_and_resume_on_the_card(cuda, tmp_path):
+    """The ``--quick`` service killed mid-run resumes from its journal to
+    the uninterrupted run's schedule, bit for bit, in as many batches."""
+    from repro_torch.fleet import __main__ as fleet_main
+    from repro_torch.fleet.service import SchedulerService, ServiceKilled
+
+    cfg = dict(quick=True, nodes=4, seed=0, fallback=False, horizon_s=0.0,
+               migration_cost_j=2000.0)
+    jobs = fleet_main.build_jobs(12, seed=0, input_sizes=(1.0, 2.0))
+    drift = [(jobs[len(jobs) // 3].arrival_s + 1.0, fleet_main.DRIFT_APP,
+              fleet_main.DRIFT_FACTOR)]
+
+    def rows(sched):
+        return [(c.placement.job.job_id, c.placement.node, c.placement.frequency_ghz,
+                 c.placement.cores, c.placement.start_s, c.finish_s, c.total_energy_j)
+                for c in sched.completed]
+
+    whole = SchedulerService(fleet_main._build_scheduler_from_config(cfg),
+                             journal=str(tmp_path / "whole.json"))
+    whole.run(jobs, drift_events=drift)
+    assert whole.scheduler.engine.device.type == "cuda"
+    path = str(tmp_path / "killed.json")
+    killed = SchedulerService(fleet_main._build_scheduler_from_config(cfg), journal=path,
+                              kill_after_batches=whole.n_batches // 2)
+    with pytest.raises(ServiceKilled):
+        killed.run(jobs, drift_events=drift)
+    resumed = SchedulerService.resume(path, fleet_main._build_scheduler_from_config(cfg))
+    resumed.drain()
+    assert rows(resumed.scheduler) == rows(whole.scheduler)
+    assert len(rows(whole.scheduler)) == 12
+    assert resumed.n_batches == whole.n_batches
+
+
 # ---------------------------------------------------------------------------
 # flash attention and the SSD chunk block (the serving path's kernels)
 # ---------------------------------------------------------------------------
