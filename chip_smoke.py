@@ -18,9 +18,13 @@ Phases (every failure raises; nothing is caught):
    plan_argmin at B = 10,000, G = 352; pareto_mask at B = 10,000,
    G = 352 (the per-row sort) and at G = 1,500 (past the sort's 1,024
    slots: all pairs). flash_attention at
-   starcoder2-3b's prefill, decode and training shapes and at gemma3-12b's
+   starcoder2-3b's prefill, decode and training shapes, at gemma3-12b's
    local attention (head dim 256, window 1,024: a 4,096 sequence and a
-   decode step), its output and its lse (with
+   decode step) and at phase 6b's other serving shapes (gemma3-12b's
+   prefill, ring decode step and global decode step at head dim 256,
+   granite-20b's MQA decode step of 48 query heads over one KV head,
+   granite-moe-1b-a400m's prefill and decode at head dim 64), its output
+   and its lse (with
    F.scaled_dot_product_attention, given the window's mask, timed as the
    library yardstick; the port never calls it), ssd_chunks at mamba2-130m's
    prefill and training shapes, the int8 codec at starcoder2-3b's embedding
@@ -86,15 +90,29 @@ Phases (every failure raises; nothing is caught):
    1,024 x 1,024, fluidanimate 8,192 particles, three steps) with the
    reference's domain properties. Every run, resume and app prints its
    wall time beside the card's name and power limit.
-6. serve: (a) starcoder2-3b and mamba2-130m at SMOKE width on the card,
-   with the kernels, on the JAX package's weights and prompts from
-   tests/data/torch_port_serve_golden.npz: prefill logits, every decode
+5d. mixed fleet: python -m repro_torch.fleet --quick --mixed (a mixed CPU
+   + TPU pool, the zoo's TPU jobs characterized by the analytic roofline)
+   against the fleet golden's "mixed" entry as in 5b; then --service
+   --journal (bit for bit against the lockstep run, and against the JAX
+   package's service run under the near-tie rule), killed before its
+   middle batch at the golden's kill point and resumed (bit for bit); then
+   launch.train --arch mamba2-130m --smoke --auto-energy, its logged plan
+   against the JAX package's (the golden's "auto_energy" entry). The
+   planning kernels' launches are counted from 0, printed by shape and
+   every call replayed against the plain version, as in 5b.
+6. serve: (a) every arch of the port at SMOKE width on the card, with the
+   kernels, on the weights and prompts of
+   tests/data/torch_port_serve_golden.npz (the JAX package's own weights,
+   or weights drawn from the seed it names): prefill logits, every decode
    step's logits and the greedy tokens against the JAX package's;
-   (b) launch.serve.main at full width for both (batch 8, prompt 1,024,
-   gen 32, random weights from a seed), once to warm up and once counted,
-   then the plain arm (impl="ref") on the same weights, fed the kernel
-   arm's tokens: prefill and step logits must agree within SERVE_FULL_REL
-   of their scale.
+   (b) launch.serve.main at full width for starcoder2-3b, mamba2-130m,
+   gemma3-12b, granite-20b and granite-moe-1b-a400m (batch 8, prompt
+   1,024, gen 32, random weights from a seed), one model on the card at a
+   time, once to warm up and once counted (prefill ms, decode tok/s, peak
+   memory, flash_attention's launches by path and head dim), then the
+   plain arm (impl="ref") on the same weights, fed the kernel arm's
+   tokens: prefill and step logits must agree within SERVE_FULL_REL of
+   their scale.
 7. train golden: starcoder2-3b and mamba2-130m at SMOKE width on the
    card, with the kernels, on the JAX package's weights and its pipeline's
    batches: three steps of launch.steps.make_train_step and three of the
@@ -116,8 +134,8 @@ Phases (every failure raises; nothing is caught):
    scan's forward and the plain SSD VJP at one layer's shape; compression;
    AdamW).
 10. launches: one JSON line with every kernel's launch count on its main
-   path (phases 4, 5 and 5b for the planning kernels, 5b's, 5c's and
-   rbf_gram's in phase 4b beside them, 6b's kernel arms for the
+   path (phases 4, 5 and 5b for the planning kernels, 5b's, 5c's, 5d's
+   and rbf_gram's in phase 4b beside them, 6b's kernel arms for the
    serving kernels, phases 8-9's training runs for the codec, each
    counted from 0 just before its path), its error against the plain
    version and its times.
@@ -207,10 +225,19 @@ SSD_REL = 1e-4
 SERVE_GOLDEN_ATOL = 1e-4
 # serve at full width (bf16), kernel arm vs plain arm, teacher-forced:
 # bf16 activations round at other places once the attention or SSD output
-# differs by an ulp (2^-8 relative), and 24-30 layers carry that on, about
-# 2^-8 x sqrt(30) ~ 2%; relative to max |logit|
+# differs by an ulp (2^-8 relative), and 24-52 layers carry that on, about
+# 2^-8 x sqrt(52) ~ 3% (gemma3-12b's 48 layers read 3.8% on an H100);
+# relative to max |logit|
 SERVE_FULL_REL = 0.05
-SERVE_ARCHS = ("starcoder2-3b", "mamba2-130m")
+# phase 6a, SMOKE width against the JAX golden: every arch of the port
+SERVE_ARCHS = ("starcoder2-3b", "mamba2-130m", "granite-20b", "qwen1.5-110b", "gemma3-12b",
+               "granite-moe-1b-a400m", "phi3.5-moe-42b-a6.6b")
+# phase 6b, full width, one model on the card at a time (gemma3-12b holds
+# 23.5 GB of bf16 weights, granite-20b 40.0 GB); qwen1.5-110b (222 GB) and
+# phi3.5-moe (83.7 GB) do not fit one card
+SERVE_FULL_ARCHS = ("starcoder2-3b", "mamba2-130m", "gemma3-12b", "granite-20b",
+                    "granite-moe-1b-a400m")
+TRAIN_ARCHS = ("starcoder2-3b", "mamba2-130m")
 SERVE_ARGV = ["--batch", "8", "--prompt-len", "1024", "--gen", "32"]
 TRAIN_GOLDEN = os.path.join(HERE, "tests", "data", "torch_port_train_golden.npz")
 # SMOKE training on the card vs the JAX package on the host, f32: phase
@@ -720,9 +747,10 @@ def _flash_case(torch, np, rng, kind, b, h, hk, sq, skv, d, dtype, **kw):
 def _check_flash(torch, np, rng, kind):
     """starcoder2-3b's attention: prefill (b 8, H 24, Hk 2, S 1024, D 128,
     causal), a decode step (one row at q_offset 1055 over a 1,064-slot
-    cache, kv_len 1,056) and training (b 2, S 4,096, causal), bf16; and
+    cache, kv_len 1,056) and training (b 2, S 4,096, causal), bf16;
     gemma3-12b's local attention at head dim 256 (H 16, Hk 8, window
-    1,024): a sequence of 4,096 and a decode step over a 4,096-key cache."""
+    1,024): a sequence of 4,096 and a decode step over a 4,096-key cache;
+    and the other full-width serving shapes of phase 6b (below)."""
     bf16 = torch.bfloat16
     prefill = _flash_case(torch, np, rng, kind, 8, 24, 2, 1024, 1024, 128, bf16,
                           causal=True)
@@ -733,12 +761,31 @@ def _check_flash(torch, np, rng, kind):
                        window=1024)
     d256_decode = _flash_case(torch, np, rng, kind, 1, 16, 8, 1, 4096, 256, bf16,
                               causal=True, window=1024, q_offset=4095, kv_len=4096)
+    # the full-width serving paths of phase 6b (batch 8, prompt 1,024, a
+    # 1,064-slot cache): gemma3-12b at head dim 256, its prefill (window
+    # 1,024), a local layer's decode step over its 1,024-slot ring (full,
+    # so the step wraps it) and a global layer's; granite-20b's MQA decode
+    # step (48 query heads packed over one KV head); granite-moe-1b-a400m at
+    # head dim 64, prefill and decode
+    d256_serve = _flash_case(torch, np, rng, kind, 8, 16, 8, 1024, 1024, 256, bf16,
+                             causal=True, window=1024)
+    d256_ring = _flash_case(torch, np, rng, kind, 8, 16, 8, 1, 1024, 256, bf16, causal=False,
+                            q_offset=0, kv_len=1024)
+    d256_global = _flash_case(torch, np, rng, kind, 8, 16, 8, 1, 1064, 256, bf16,
+                              causal=False, q_offset=1055, kv_len=1056)
+    mqa_decode = _flash_case(torch, np, rng, kind, 8, 48, 1, 1, 1064, 128, bf16, causal=False,
+                             q_offset=1055, kv_len=1056)
+    d64 = _flash_case(torch, np, rng, kind, 8, 16, 8, 1024, 1024, 64, bf16, causal=True)
+    d64_decode = _flash_case(torch, np, rng, kind, 8, 16, 8, 1, 1064, 64, bf16, causal=False,
+                             q_offset=1055, kv_len=1056)
     # the JSON line carries the prefill shape, the larger share of the
     # serving time, and the other shapes' errors and times under their own
     # keys
     out = dict(prefill)
     for name, r in (("decode", decode), ("train", train), ("d256", d256),
-                    ("d256_decode", d256_decode)):
+                    ("d256_decode", d256_decode), ("d256_serve", d256_serve),
+                    ("d256_ring", d256_ring), ("d256_global", d256_global),
+                    ("mqa_decode", mqa_decode), ("d64", d64), ("d64_decode", d64_decode)):
         for key in ("max_abs_err", "lse_max_abs_err", "ms", "library_ms", "bound_ms"):
             out[f"{name}_{key}"] = r[key]
     return out
@@ -1122,19 +1169,24 @@ def _fleet_sim_run(argv):
     from repro_torch.fleet import __main__ as fleet_main
 
     kept = {}
-    inner = fleet_main.run_fleet_comparison
+    names = ("run_fleet_comparison", "run_mixed_fleet_comparison")  # --mixed: the latter
+    inner = {name: getattr(fleet_main, name) for name in names}
 
-    def comparison(*args, **kw):
-        report, sched = inner(*args, **kw)
-        kept["sched"] = sched
-        return report, sched
+    def keeping(fn):
+        def comparison(*args, **kw):
+            report, sched = fn(*args, **kw)
+            kept["sched"] = sched
+            return report, sched
+        return comparison
 
-    fleet_main.run_fleet_comparison = comparison
+    for name in names:
+        setattr(fleet_main, name, keeping(inner[name]))
     try:
         with _Kept() as launches:
             report = fleet_main.main(list(argv) + ["--device", DEVICE])
     finally:
-        fleet_main.run_fleet_comparison = inner
+        for name in names:
+            setattr(fleet_main, name, inner[name])
     sched = kept["sched"]
     return report, sched, launches.of(sched)
 
@@ -1412,6 +1464,33 @@ def _first_difference(got: dict, want: dict) -> str:
     return f"{key}: {got[key]!r} vs {want[key]!r}"
 
 
+def _kill_and_resume(torch, argv, label: str, stem: str, svc, k: int):
+    """``argv`` (a ``--service`` run) killed before batch k of the
+    uninterrupted service ``svc`` (``--kill-at`` the batch before's sim
+    time; -1 before batch 0) into the journal ``<stem>-kill<k>.json``, then
+    resumed by ``--resume`` in a fresh ``main``: ``svc``'s schedule bit for
+    bit, in as many batches. Returns (the kill's sim time, the beliefs the
+    journal held, the kill's and the resume's wall seconds)."""
+    n, want = svc.n_batches, _fleet_schedule(svc.scheduler)
+    kill_path = f"{stem}-kill{k}.json"
+    kill_at = svc.scheduler.rounds[k - 1].now if k else -1.0
+    killed, _, kill_wall = _service_main(
+        torch, argv + ["--journal", kill_path, "--kill-at", repr(kill_at)])
+    with open(kill_path) as f:
+        payload = json.load(f)
+    if killed is not None or payload["n_batches"] != k:
+        raise AssertionError(f"{label}: --kill-at {kill_at!r} committed "
+                             f"{payload['n_batches']} batches, not {k}")
+    _, kept, resume_wall = _service_main(torch, ["--resume", kill_path])
+    resumed = kept.services[-1]
+    again = _fleet_schedule(resumed.scheduler)
+    if again != want or resumed.n_batches != n:
+        raise AssertionError(f"{label} killed before batch {k} and resumed: "
+                             + (_first_difference(again, want) if again != want
+                                else f"{resumed.n_batches} batches, not {n}"))
+    return kill_at, len(payload["ledger"]["beliefs"]), kill_wall, resume_wall
+
+
 def _service_runs(torch, smi, lockstep) -> dict:
     """Phase 5c parts 1-2: each of SERVICE_RUNS through ``--service
     --journal`` against phase 5b's lockstep run of the same arguments, bit
@@ -1436,31 +1515,15 @@ def _service_runs(torch, smi, lockstep) -> dict:
         print(f"[service] python -m repro_torch.fleet {label} --service --journal: "
               f"{len(sched.completed)} jobs in {n} batches, equal bit for bit to phase 5b's "
               f"lockstep run (held there to the JAX golden); {wall:.3f} s on {smi}", flush=True)
-        batch_s = [r.now for r in sched.rounds]
         for where, k in (("early", 0), ("middle", n // 2), ("late", n - 1)):
-            kill_path = os.path.join(SERVICE_DIR, f"run{i}-kill{k}.json")
-            kill_at = batch_s[k - 1] if k else -1.0
-            killed, _, kill_wall = _service_main(
-                torch, argv + ["--service", "--journal", kill_path, "--kill-at", repr(kill_at)])
-            with open(kill_path) as f:
-                payload = json.load(f)
-            committed, n_beliefs = payload["n_batches"], len(payload["ledger"]["beliefs"])
+            kill_at, n_beliefs, kill_wall, resume_wall = _kill_and_resume(
+                torch, argv + ["--service"], f"service {label}",
+                os.path.join(SERVICE_DIR, f"run{i}"), svc, k)
             refits += n_beliefs
-            if killed is not None or committed != k:
-                raise AssertionError(f"service {label}: --kill-at {kill_at!r} committed "
-                                     f"{committed} batches, not {k}")
-            _, kept_r, resume_wall = _service_main(torch, ["--resume", kill_path])
-            resumed = kept_r.services[-1]
-            again = _fleet_schedule(resumed.scheduler)
-            if again != got or resumed.n_batches != n:
-                raise AssertionError(
-                    f"service {label} killed before batch {k} and resumed: "
-                    + (_first_difference(again, got) if again != got
-                       else f"{resumed.n_batches} batches, not {n}"))
             print(f"[service] {label}: killed before batch {k} of {n} ({where}; "
                   f"--kill-at {kill_at:.6g}, {kill_wall:.3f} s), python -m repro_torch.fleet "
                   f"--resume drained it in {resume_wall:.3f} s to the uninterrupted schedule "
-                  f"bit for bit, {resumed.n_batches} batches, {n_beliefs} beliefs re-fitted "
+                  f"bit for bit, {n} batches, {n_beliefs} beliefs re-fitted "
                   f"at recovery; {smi}", flush=True)
     if not refits:
         raise AssertionError("no killed service journal held a belief: the recovery refit "
@@ -1518,6 +1581,110 @@ def phase_service(torch, np, smi, lockstep):
     walls = _service_runs(torch, smi, lockstep)
     pred_rel = _service_reference_journal(torch, np, smi)
     return walls, pred_rel
+
+
+def _mixed_service(torch, np, smi, gold, lockstep) -> float:
+    """Phase 5d part 2: ``--quick --mixed --service --journal`` against the
+    lockstep run bit for bit and the JAX golden's service run under the
+    near-tie rule; then killed before its middle batch (the golden's kill
+    point) and resumed by ``--resume``: the uninterrupted schedule bit for
+    bit, in as many batches. Returns the largest predicted-energy gap."""
+    argv = gold["argv"]
+    label = " ".join(argv)
+    path = os.path.join(SERVICE_DIR, "mixed.json")
+    _, kept, wall = _service_main(torch, argv + ["--journal", path])
+    svc = kept.services[-1]
+    sched, n = svc.scheduler, svc.n_batches
+    got = _fleet_schedule(sched)
+    if got != lockstep:
+        raise AssertionError(f"{label} differs from the lockstep run: "
+                             f"{_first_difference(got, lockstep)}")
+    near_tie, pred_rel, same = _check_jobs(torch, np, label, sched, kept.of(sched),
+                                           gold["jobs"], gold["predicted_energy_j"])
+    if sched.deadline_misses() != gold["deadline_misses"]:
+        raise AssertionError(f"{label}: {sched.deadline_misses()} misses, golden "
+                             f"{gold['deadline_misses']}")
+    if near_tie is None and (sched.total_energy_j() != gold["total_energy_j"]
+                             or n != gold["n_batches"]):
+        raise AssertionError(f"{label}: {sched.total_energy_j()!r} J in {n} batches, golden "
+                             f"{gold['total_energy_j']!r} J in {gold['n_batches']}")
+    print(f"[mixed] python -m repro_torch.fleet {label} --journal: {len(sched.completed)} "
+          f"jobs in {n} batches, equal bit for bit to the lockstep run and "
+          f"{'equal to' if near_tie is None else 'after a near-tie against'} the JAX "
+          f"package's service run; {wall:.3f} s on {smi}", flush=True)
+    kill, k = gold["kill"], n // 2
+    kill_at, _, kill_wall, resume_wall = _kill_and_resume(
+        torch, argv, label, os.path.join(SERVICE_DIR, "mixed"), svc, k)
+    if near_tie is None and (k, kill_at) != (kill["batch"], kill["at_s"]):
+        raise AssertionError(f"{label}: kill point (batch {k}, t {kill_at!r}) is not the "
+                             f"golden's {kill}")
+    print(f"[mixed] {label}: killed before batch {k} of {n} (--kill-at {kill_at:.6g}, "
+          f"the JAX package's kill point; {kill_wall:.3f} s), --resume drained it in "
+          f"{resume_wall:.3f} s to the uninterrupted schedule bit for bit; {smi}", flush=True)
+    return pred_rel
+
+
+def phase_auto_energy(torch, np, smi, gold):
+    """``launch.train --arch mamba2-130m --smoke --auto-energy`` on the card:
+    the plan it logs (the analytic roofline: no dry-run artifact) against
+    the JAX package's, its other fields equal and its floats within
+    FLEET_PRED_REL."""
+    from repro_torch.core import planner
+    from repro_torch.launch import train
+
+    kept = []
+    inner = planner.EnergyOptimalPlanner.plan_for_workload
+
+    def plan_for_workload(self, *args, **kw):
+        kept.append(inner(self, *args, **kw))
+        return kept[-1]
+
+    planner.EnergyOptimalPlanner.plan_for_workload = plan_for_workload
+    t0 = time.perf_counter()
+    try:
+        train.main(gold["argv"] + ["--steps", "1", "--device", DEVICE, "--ckpt-dir",
+                                   os.path.join(SERVICE_DIR, "auto_energy_ckpt")])
+    finally:
+        planner.EnergyOptimalPlanner.plan_for_workload = inner
+    wall = time.perf_counter() - t0
+    (plan,) = kept
+    want = gold["plan"]
+    rel = max(abs(getattr(plan, k) - v) / max(abs(v), 1e-300) for k, v in want.items()
+              if isinstance(v, float))
+    exact = {k: getattr(plan, k) for k, v in want.items() if not isinstance(v, float)}
+    exact["mesh"] = list(exact["mesh"])
+    if exact != {k: v for k, v in want.items() if not isinstance(v, float)}:
+        raise AssertionError(f"auto-energy: plan {exact} != the JAX package's {want}")
+    if not rel <= FLEET_PRED_REL:
+        raise AssertionError(f"auto-energy: {plan.summary()!r} ({rel:.3g} off) against the "
+                             f"JAX package's {gold['summary']!r}")
+    print(f"[auto-energy] launch.train {' '.join(gold['argv'])}: {plan.summary()}; equal to "
+          f"the JAX package's plan ({gold['summary']}), its floats within {rel!r}; "
+          f"{wall:.3f} s (one training step included) on {smi}", flush=True)
+
+
+def phase_mixed(torch, np, smi):
+    """Phase 5d: the mixed CPU + TPU fleet (``--quick --mixed``: the zoo's
+    TPU jobs on the analytic roofline, lockstep, then as a service with a
+    kill and a resume) against the JAX golden, then ``launch.train
+    --auto-energy``. Returns the largest predicted-energy gap."""
+    with open(FLEET_GOLDEN) as f:
+        golden = json.load(f)
+    gold = golden["mixed"]
+    os.makedirs(SERVICE_DIR, exist_ok=True)
+    t0 = time.perf_counter()
+    report, sched, surfaces = _fleet_sim_run(gold["lockstep"]["argv"])
+    _stage(f"mixed fleet: python -m repro_torch.fleet {' '.join(gold['lockstep']['argv'])} "
+           f"--device {DEVICE} ({len(sched.rounds)} rounds)", t0)
+    _, rel = _check_fleet_run(torch, np, gold["lockstep"], report, sched, surfaces)
+    tpu = sum(c.placement.job.device == "tpu" for c in sched.completed)
+    if not tpu:
+        raise AssertionError("mixed fleet: no TPU job completed")
+    print(f"[mixed] {tpu} of {len(sched.completed)} jobs are the zoo's TPU workloads, "
+          f"characterized by the analytic roofline", flush=True)
+    rel = max(rel, _mixed_service(torch, np, smi, gold["service"], _fleet_schedule(sched)))
+    phase_auto_energy(torch, np, smi, golden["auto_energy"])
+    return rel
 
 
 def _quick_service_trace():
@@ -1708,21 +1875,23 @@ def phase_apps(torch, np, smi):
 
 def _golden_params(golden, prefix: str) -> dict:
     """A reference pytree from a golden's ``<prefix><dotted path>`` arrays."""
-    tree: dict = {}
-    for key in golden.files:
-        if key.startswith(prefix):
-            *path, leaf = key[len(prefix):].split(".")
-            node = tree
-            for part in path:
-                node = node.setdefault(part, {})
-            node[leaf] = golden[key]
-    tree["blocks"] = [tree["blocks"][str(i)] for i in range(len(tree["blocks"]))]
-    return tree
+    from repro_torch import convert
+
+    return convert.unflatten_reference({key[len(prefix):]: golden[key] for key in golden.files
+                                        if key.startswith(prefix)})
 
 
 def _reference_params(golden, arch_id: str) -> dict:
-    """The JAX package's parameter pytree of one arch, from the golden's
-    flattened ``<arch>/param/<dotted path>`` arrays."""
+    """The parameter pytree the JAX package served one arch with: the
+    golden's flattened ``<arch>/param/<dotted path>`` arrays, or the
+    weights drawn from its ``<arch>/param_seed`` in the shapes of
+    ``<arch>/param_shapes``."""
+    from repro_torch import convert
+
+    if f"{arch_id}/param_seed" in golden.files:
+        return convert.seeded_reference_params(
+            json.loads(str(golden[f"{arch_id}/param_shapes"])),
+            int(golden[f"{arch_id}/param_seed"]))
     return _golden_params(golden, f"{arch_id}/param/")
 
 
@@ -1773,46 +1942,102 @@ def phase_serve_golden(torch, np):
             raise AssertionError(f"{arch_id}: greedy tokens differ from the JAX golden")
 
 
-def phase_serve_full(torch, np):
+def _flash_path(q, k, *_):
+    """flash_attention's call as (path, head dim): the kernel path its
+    launch plan takes (``kernels/flash_attention.py:launch_plan``)."""
+    from repro_torch.kernels.flash_attention import launch_plan
+
+    b, h, sq, d = q.shape
+    return (launch_plan(b, h, k.shape[1], sq, k.shape[2], d, q.dtype).path, d)
+
+
+def _free(torch):
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_serve_full(torch, np, smi: str = ""):
     """Full width through launch.serve.main (the kernel arms, counted from
-    0), then the plain arms on the same weights, teacher-forced."""
+    0), then the plain arms on the same weights, teacher-forced. One model
+    is on the card at a time. Returns the launches over the kernel arms and
+    flash_attention's by (path, head dim)."""
+    from repro_torch.configs import get_arch
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
+    from repro_torch.models import attention
 
-    for arch_id in SERVE_ARCHS:
-        # the first full-width call pays for cuBLAS's handles and heuristics
+    args = dict(zip(SERVE_ARGV[::2], (int(v) for v in SERVE_ARGV[1::2])))
+    gen, prompt_len = args["--gen"], args["--prompt-len"]
+    for arch_id in SERVE_FULL_ARCHS:
+        # the first full-width call of an arch pays for cuBLAS's heuristics
         # and the allocator's pools; its times are printed, not kept
         cold = serve.main(["--arch", arch_id, *SERVE_ARGV])
         print(f"[serve] {arch_id} warm-up run: prefill {cold.prefill_s * 1e3:.1f} ms, "
               f"decode {cold.decode_s * 1e3:.1f} ms", flush=True)
         del cold
+        _free(torch)
     ops.reset_launches()  # the serving path's launches are counted from here
-    runs = {}
-    for arch_id in SERVE_ARCHS:
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        runs[arch_id] = serve.main(["--arch", arch_id, *SERVE_ARGV])
-        print(f"[serve] {arch_id} kernel arm: serve.main {time.perf_counter() - t0:.3f} s "
-              f"(weights included), peak memory "
-              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    by_path, restore = _tally_shapes(ops, "flash_attention_cuda", _flash_path)
+    runs, want = {}, {"flash_attention": 0, "ssd_chunks": 0}
+    try:
+        for arch_id in SERVE_FULL_ARCHS:
+            cfg = get_arch(arch_id).full
+            name = _kernel_of(arch_id)
+            before, paths_before = dict(ops.LAUNCHES), dict(by_path)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            runs[arch_id] = run = serve.main(["--arch", arch_id, *SERVE_ARGV])
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            _free(torch)
+            launched = ops.LAUNCHES[name] - before[name]
+            paths = {f"{p} d{d}": n - paths_before.get((p, d), 0)
+                     for (p, d), n in sorted(by_path.items())
+                     if n - paths_before.get((p, d), 0)}
+            n = cfg.n_layers * (1 if name == "ssd_chunks" else gen)
+            want[name] += n
+            if launched != n:
+                raise AssertionError(f"{arch_id}: {name} launched {launched} times, not {n}")
+            note = ""
+            if name == "flash_attention":
+                d = cfg.attn.d_head
+                expect = {f"mma_tile d{d}": cfg.n_layers, f"mma_decode d{d}":
+                          cfg.n_layers * (gen - 1)}
+                if paths != expect:
+                    raise AssertionError(f"{arch_id}: flash_attention launches by path "
+                                         f"{paths}, not {expect}")
+                note = f", flash_attention launches by path and head dim {json.dumps(paths)}"
+                if cfg.local_window:
+                    ring = attention.cache_len(cfg.local_attn(), prompt_len + gen + 8)
+                    if not ring == cfg.local_window <= prompt_len:
+                        raise AssertionError(f"{arch_id}: the local ring of {ring} slots "
+                                             f"does not wrap")
+                    note += (f"; the {cfg.kinds().count('local')} local layers' ring of {ring}"
+                             f" slots is full after the {prompt_len}-token prompt, so decode "
+                             f"step 1 writes slot {prompt_len % ring} over position 0")
+            tps = gen * args["--batch"] / run.decode_s
+            print(f"[serve] {arch_id} kernel arm: prefill {run.prefill_s * 1e3:.1f} ms for "
+                  f"{args['--batch']}x{prompt_len} tokens, decode {tps:.1f} tok/s "
+                  f"({gen} steps in {run.decode_s * 1e3:.1f} ms); serve.main {wall:.3f} s "
+                  f"(weights included), peak memory {peak:.2f} GiB{note}"
+                  + (f"; {smi}" if smi else ""), flush=True)
+    finally:
+        restore()
     launches = dict(ops.LAUNCHES)
-    print(f"[serve] launches over both kernel arms: {json.dumps(launches)}", flush=True)
-    args = dict(zip(SERVE_ARGV[::2], (int(v) for v in SERVE_ARGV[1::2])))
-    gen = args["--gen"]
-    from repro_torch.configs import get_arch
-    want = {"flash_attention": get_arch("starcoder2-3b").full.n_layers * gen,
-            "ssd_chunks": get_arch("mamba2-130m").full.n_layers}
+    print(f"[serve] launches over the kernel arms: {json.dumps(launches)}", flush=True)
     for name, n in want.items():
         if launches[name] != n:
             raise AssertionError(f"{name}: {launches[name]} launches, not {n}")
 
-    for arch_id in SERVE_ARCHS:
-        kernel_run = runs[arch_id]
+    for arch_id in SERVE_FULL_ARCHS:
+        kernel_run = runs.pop(arch_id)
         arch, cfg, model = serve.build(arch_id, seed=0)
-        prompts = serve.make_prompts(cfg, args["--batch"], args["--prompt-len"], 0)
+        prompts = serve.make_prompts(cfg, args["--batch"], prompt_len, 0)
         before = dict(ops.LAUNCHES)
         plain = serve.run(arch, cfg, model, prompts, gen, impl="ref",
                           forced=kernel_run.tokens)
+        del model
+        _free(torch)
         if dict(ops.LAUNCHES) != before:
             raise AssertionError(f"{arch_id}: the plain arm launched a kernel")
         pairs = [(kernel_run.prefill_logits, plain.prefill_logits),
@@ -1830,9 +2055,9 @@ def phase_serve_full(torch, np):
             raise AssertionError(f"{arch_id}: non-finite logits")
         if max(errs) > SERVE_FULL_REL * scale:
             raise AssertionError(f"{arch_id}: kernel and plain arms disagree")
-        del model, plain
-        torch.cuda.empty_cache()
-    return launches
+        del kernel_run, plain, pairs
+        _free(torch)
+    return launches, {f"{p} d{d}": n for (p, d), n in sorted(by_path.items())}
 
 
 def _train_opt(golden):
@@ -1862,7 +2087,7 @@ def phase_train_golden(torch, np):
     group = mesh.make_data_group(dev)
     if torch.distributed.get_backend(group) != "nccl":
         raise AssertionError("the data group on the card is not NCCL")
-    for arch_id in SERVE_ARCHS:
+    for arch_id in TRAIN_ARCHS:
         arch = get_arch(arch_id)
         cfg = arch.smoke
         pipe = SyntheticPipeline(PipelineConfig(
@@ -2271,12 +2496,28 @@ def main() -> int:
     t0 = _stage("fleet service: faults and fit_many's batches", t0)
     phase_apps(torch, np, smi)
     t0 = _stage("apps: the JAX golden and native sizes", t0)
+    mixed_calls = {}
+    mixed_launches, mixed_shapes = _counted(ops, lambda: phase_mixed(torch, np, smi),
+                                            mixed_calls)
+    t0 = _stage("mixed fleet: lockstep, service, kill and resume; launch.train --auto-energy",
+                t0)
+    for name, tally in mixed_shapes.items():
+        if sum(tally.values()) != mixed_launches[name]:
+            raise AssertionError(f"{name} in the mixed fleet: {mixed_launches[name]} "
+                                 f"launches, {sum(tally.values())} calls by shape")
+    print(f"[launches] mixed fleet and auto-energy: {json.dumps(mixed_launches)}", flush=True)
+    for name, numbers in phase_fleet_kernels(torch, np, kind, mixed_shapes, mixed_calls,
+                                             label="mixed fleet", prefix="mixed").items():
+        results[name].update(numbers, mixed_launches=mixed_launches[name])
+        launches[name] += mixed_launches[name]
+    t0 = _stage("mixed fleet: the planning kernels at its shapes", t0)
     phase_serve_golden(torch, np)
     t0 = _stage("serve: SMOKE golden on the card", t0)
-    serve_launches = phase_serve_full(torch, np)
+    serve_launches, flash_by_path = phase_serve_full(torch, np, smi)
     t0 = _stage("serve: full width, kernel and plain arms", t0)
     for name in ("flash_attention", "ssd_chunks"):
         launches[name] = serve_launches[name]
+    results["flash_attention"]["serve_launches_by_path"] = flash_by_path
     phase_train_golden(torch, np)
     t0 = _stage("train: SMOKE golden on the card", t0)
     ops.reset_launches()  # the training path's launches are counted from here
@@ -2322,7 +2563,8 @@ def main() -> int:
         # ssd_chunks' training) and flash_attention's lse error
         entry.update({key: val for key, val in r.items()
                       if key.startswith(("decode_", "train_", "lse_", "fp32_", "d256_",
-                                         "pairs_", "table1_", "fleet_", "service_"))})
+                                         "mqa_", "d64_", "pairs_", "table1_", "fleet_",
+                                         "service_", "mixed_", "serve_"))})
         if name in ("flash_attention", "ssd_chunks"):
             entry["train_launches"] = train_launches[name]
         line.append(entry)

@@ -7,8 +7,8 @@ on one card, so that one call can time two commits in turns.
 It uses the ``chip_smoke.py`` and ``src/`` of the current directory, which
 may hold an older commit unpacked with ``git archive``: the card's name
 and power limit, the kernel build, phase 6b (``launch.serve.main`` at full
-width for starcoder2-3b and mamba2-130m, kernel arm and plain arm: prefill
-ms and decode tokens/s), phase 8 (starcoder2-3b training at full width:
+width for each arch of the checkout's ``SERVE_FULL_ARCHS``, kernel arm and
+plain arm: prefill ms and decode tokens/s), phase 8 (starcoder2-3b training at full width:
 step time, tokens/s, peak memory, launches a step, one step taken apart,
 kernel arm against plain arm) and phase 9's ``launch.train.main`` run of
 mamba2-130m (six steps with a resume: step times, peak memory), with LABEL

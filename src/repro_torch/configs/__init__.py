@@ -4,21 +4,35 @@
 yet raises and names its ROADMAP item.
 """
 
-from repro_torch.configs import mamba2_130m, starcoder2_3b
+from repro_torch.configs import (
+    gemma3_12b,
+    granite_20b,
+    granite_moe_1b_a400m,
+    mamba2_130m,
+    phi35_moe_42b_a66b,
+    qwen15_110b,
+    starcoder2_3b,
+)
 from repro_torch.configs.base import ArchDef
 
-ARCHS = {m.ARCH.arch_id: m.ARCH for m in (starcoder2_3b, mamba2_130m)}
+ARCHS = {
+    m.ARCH.arch_id: m.ARCH
+    for m in (
+        granite_moe_1b_a400m,
+        phi35_moe_42b_a66b,
+        granite_20b,
+        qwen15_110b,
+        starcoder2_3b,
+        gemma3_12b,
+        mamba2_130m,
+    )
+}
 
 # the reference's other assigned archs, and what they wait for
 NOT_PORTED = {
-    "granite-moe-1b-a400m": "ROADMAP A8 (models/moe.py)",
-    "phi3.5-moe-42b-a6.6b": "ROADMAP A8 (models/moe.py)",
-    "granite-20b": "ROADMAP A8 (its config)",
-    "qwen1.5-110b": "ROADMAP A8 (its config)",
-    "gemma3-12b": "ROADMAP A8 (its config)",
-    "phi-3-vision-4.2b": "ROADMAP A8 (the vision path)",
-    "zamba2-7b": "ROADMAP A8 (the shared-attention path)",
-    "whisper-medium": "ROADMAP A8 (models/encdec.py)",
+    "zamba2-7b": "ROADMAP A8c (the shared-attention path)",
+    "phi-3-vision-4.2b": "ROADMAP A8d (the vision path)",
+    "whisper-medium": "ROADMAP A8e (models/encdec.py)",
 }
 
 
@@ -29,4 +43,3 @@ def get_arch(arch_id: str) -> ArchDef:
         raise NotImplementedError(
             f"arch {arch_id!r} is not ported yet: {NOT_PORTED[arch_id]}")
     raise KeyError(f"unknown arch {arch_id!r}; ported: {sorted(ARCHS)}")
-

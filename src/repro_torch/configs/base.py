@@ -4,7 +4,7 @@ shape cells and the ``ArchDef`` adapter over the model entry points.
 Every architecture module exports an ``ArchDef`` with a FULL config (the
 published spec) and a SMOKE config (same family, tiny dims). The port
 carries the decoder-only LM entry points; the encoder-decoder family waits
-(ROADMAP A8).
+(ROADMAP A8e).
 """
 
 from __future__ import annotations

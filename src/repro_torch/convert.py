@@ -62,6 +62,37 @@ def flatten_reference(tree, prefix: str = "") -> dict:
     return {prefix[:-1]: np.asarray(tree)}
 
 
+def unflatten_reference(flat: Mapping[str, Any]) -> dict:
+    """{dotted path: array} as a reference LM pytree, the inverse of
+    ``flatten_reference``: nested dicts, with ``blocks`` a list by pattern
+    position."""
+    tree: dict = {}
+    for key, arr in flat.items():
+        *path, leaf = key.split(".")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = arr
+    if "blocks" in tree:
+        tree["blocks"] = [tree["blocks"][str(i)] for i in range(len(tree["blocks"]))]
+    return tree
+
+
+def seeded_reference_params(shapes: Mapping[str, Sequence[int]], seed: int) -> dict:
+    """Float32 weights of a reference LM pytree, given its leaves' shapes by
+    dotted path, drawn from ``numpy.random.default_rng(seed)`` in sorted
+    path order: a norm's ``scale`` 1 + N(0, 0.1^2), every other leaf
+    N(0, 0.02^2). Weights a golden names by their seed instead of holding
+    them."""
+    rng = np.random.default_rng(seed)
+    flat = {}
+    for path in sorted(shapes):
+        z = rng.standard_normal(tuple(shapes[path])).astype(np.float32)
+        flat[path] = (np.float32(1.0) + np.float32(0.1) * z if path.endswith("scale")
+                      else np.float32(0.02) * z)
+    return unflatten_reference(flat)
+
+
 def load_reference_params(module: torch.nn.Module, values: Mapping[str, Any]):
     """Copy {dotted path: array} into ``module``'s parameters of the same
     names, cast to each parameter's dtype; a leaf without a parameter, a

@@ -482,16 +482,48 @@ def terms_from_dryrun(
 
 
 
-def terms_analytic(arch_id: str, cell) -> RooflineTerms:
-    """6·N·D fallback when no dry-run artifact exists.
+# terms_analytic is pure in (arch_id, cell) but builds the arch's module
+# tree on the meta device per call. Memoized process-wide; ShapeCell is
+# frozen/hashable so the cell itself is the key.
+_ANALYTIC_TERMS_CACHE: Dict[Tuple[str, Hashable], RooflineTerms] = {}
 
-    Counting a zoo architecture's parameters needs the model zoo, which is
-    not ported yet (ROADMAP A8)."""
-    raise NotImplementedError(
-        f"terms_analytic({arch_id!r}) needs the model zoo, which is not "
-        "ported yet (ROADMAP A8); pass Workload(terms=...) or a dry-run "
-        "artifact instead"
+
+def _count_params(arch_id: str) -> float:
+    """The arch's FULL parameter count, from its modules built on the meta
+    device (nothing is allocated); 1e8 for an id the zoo does not know, as
+    the reference. An assigned arch that is not ported raises and names its
+    ROADMAP item, so that no roofline is computed from a stand-in count."""
+    from repro_torch.configs import ARCHS, NOT_PORTED  # lazy: keeps the node-only path light
+    from repro_torch.models import common, lm
+
+    arch = ARCHS.get(arch_id)
+    if arch is None:
+        if arch_id in NOT_PORTED:
+            raise NotImplementedError(
+                f"terms_analytic({arch_id!r}): arch not ported yet, {NOT_PORTED[arch_id]}")
+        return 1e8
+    return common.count_params(lm.init(arch.full, generator=None, device="meta"))
+
+
+def terms_analytic(arch_id: str, cell) -> RooflineTerms:
+    """6·N·D fallback when no dry-run artifact exists (memoized)."""
+    key = (arch_id, cell)
+    cached = _ANALYTIC_TERMS_CACHE.get(key)
+    if cached is not None:
+        return cached
+    n_params = _count_params(arch_id)
+    tokens = cell.seq * cell.batch
+    mult = 3.0 if cell.kind == "train" else 0.33  # fwd+bwd(+remat) vs fwd
+    flops = 2.0 * n_params * tokens * mult
+    per_dev = flops / 256
+    terms = RooflineTerms(
+        compute_s=per_dev / PEAK_FLOPS_BF16,
+        memory_s=2 * n_params * 2 / 256 / HBM_BW,
+        collective_s=per_dev / PEAK_FLOPS_BF16 * 0.3,
+        source="analytic",
     )
+    _ANALYTIC_TERMS_CACHE[key] = terms
+    return terms
 
 
 # ---------------------------------------------------------------------------
@@ -688,9 +720,17 @@ class PlanningEngine:
     def default(cls, **kw) -> "PlanningEngine":
         return cls(fit_fleet_power(FleetTelemetry()), **kw)
 
-    def clear_cache(self) -> None:
-        """Drop every cached characterization of this engine."""
+    def clear_cache(self, *, analytic: bool = True) -> None:
+        """Drop every cached characterization.
+
+        By default clears both memo layers: this engine's fit cache and
+        the module-level ``terms_analytic`` (arch_id, cell) memo, which is
+        process-wide (shared by every engine); ``analytic=False`` drops
+        only this engine's fits.
+        """
         self._fits.clear()
+        if analytic:
+            _ANALYTIC_TERMS_CACHE.clear()
 
     def install_fit(self, key: Hashable, model, pae: float, terms) -> None:
         """Install (or refresh) a characterization fitted outside the engine.

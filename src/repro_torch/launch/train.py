@@ -11,10 +11,12 @@ AdamW with its schedule, async checkpoints with preemption-safe restart
 compression over the data-parallel group (``--compress``: NCCL on the
 card, gloo on the host; one rank unless ``torchrun`` starts more).
 ``--auto-energy`` logs the planner's energy-optimal (f, chips) plan for
-the run's shape (``core/planner.py``); it needs the arch's dry-run
-artifact until the analytic roofline is ported (ROADMAP A8). Weights are random, from a seeded
-``torch.Generator`` on the device; the model, its AdamW state and the
-error-feedback residuals are updated in place.
+the run's shape (``core/planner.py``), from the arch's dry-run artifact
+where one exists, else the analytic roofline (``engine.terms_analytic``).
+Weights are random, from a seeded ``torch.Generator`` on the device; the
+model, its AdamW state and the error-feedback residuals are updated in
+place. Of the reference's archs, zamba2-7b, phi-3-vision-4.2b and
+whisper-medium are not ported yet (ROADMAP A8c-A8e).
 """
 
 from __future__ import annotations

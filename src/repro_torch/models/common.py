@@ -34,7 +34,11 @@ def param(t: torch.Tensor) -> nn.Parameter:
 
 def normal(shape, *, std: float, dtype, generator: torch.Generator,
            device) -> torch.Tensor:
-    """N(0, std^2) drawn in float32 on ``device``, cast to ``dtype``."""
+    """N(0, std^2) drawn in float32 on ``device``, cast to ``dtype``. On the
+    meta device (shapes only, as ``engine.terms_analytic`` counts) nothing
+    is drawn and ``generator`` may be None."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
     return (torch.randn(shape, generator=generator, device=device) * std).to(dtype)
 
 

@@ -1,12 +1,13 @@
 """Decoder-only LM over a repeating pattern of block kinds, the reference's
 ``models/lm.py``, for the kinds the port carries:
 
-    "attn"   -- global attention + dense FFN   (starcoder2, the examples)
-    "local"  -- sliding-window attention + FFN (ring KV cache)
+    "attn"   -- global attention + dense FFN   (starcoder2, granite-20b, qwen1.5)
+    "local"  -- sliding-window attention + FFN (gemma3's local layers; ring KV cache)
+    "moe"    -- global attention + top-k MoE   (granite-moe, phi3.5-moe)
     "mamba"  -- Mamba2 SSD block               (mamba2)
 
-Kinds "moe", ``shared_attn`` and ``vision`` raise ``NotImplementedError``
-(ROADMAP A8: ``models/moe.py`` and the zamba2 / phi-3-vision paths).
+``shared_attn`` (zamba2, ROADMAP A8c) and ``vision`` (phi-3-vision, A8d)
+raise ``NotImplementedError``.
 
 Where the reference stacks each pattern position's weights over
 ``n_groups`` and runs ``lax.scan``, the port keeps one module per layer in
@@ -29,12 +30,14 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models import attention, common, mamba2
+from repro_torch.models import attention, common, mamba2, moe
 from repro_torch.models.attention import AttnConfig
 from repro_torch.models.mamba2 import Mamba2Config
+from repro_torch.models.moe import MoEConfig
 
-PORTED_KINDS = ("attn", "local", "mamba")
-NOT_PORTED = "not ported yet (ROADMAP A8: models/moe.py, the shared-attention and vision paths)"
+PORTED_KINDS = ("attn", "local", "moe", "mamba")
+NOT_PORTED = {"shared_attn": "not ported yet (ROADMAP A8c: the zamba2 shared-attention path)",
+              "vision": "not ported yet (ROADMAP A8d: the phi-3-vision path)"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,7 +57,7 @@ class LMConfig:
     local_window: Optional[int] = None
     d_ff: int = 0
     mlp_gated: bool = True
-    moe_cfg: Optional[Any] = None
+    moe_cfg: Optional[MoEConfig] = None
     mamba_cfg: Optional[Mamba2Config] = None
     shared_attn: bool = False
     norm: str = "rmsnorm"
@@ -85,11 +88,11 @@ class LMConfig:
 def _check_ported(cfg: LMConfig) -> None:
     bad = [k for k in cfg.pattern if k not in PORTED_KINDS]
     if bad:
-        raise NotImplementedError(f"block kind {bad[0]!r}: {NOT_PORTED}")
+        raise ValueError(f"block kind {bad[0]!r}")
     if cfg.shared_attn:
-        raise NotImplementedError(f"shared_attn: {NOT_PORTED}")
+        raise NotImplementedError(f"shared_attn: {NOT_PORTED['shared_attn']}")
     if cfg.vision is not None:
-        raise NotImplementedError(f"vision: {NOT_PORTED}")
+        raise NotImplementedError(f"vision: {NOT_PORTED['vision']}")
 
 
 def _attn_cfg(cfg: LMConfig, kind: str) -> AttnConfig:
@@ -97,7 +100,8 @@ def _attn_cfg(cfg: LMConfig, kind: str) -> AttnConfig:
 
 
 class AttnBlock(nn.Module):
-    """ln1 -> attention -> residual, ln2 -> MLP -> residual."""
+    """ln1 -> attention -> residual, ln2 -> MLP (or, for "moe", the
+    mixture of experts) -> residual."""
 
     def __init__(self, cfg: LMConfig, kind: str, *, generator: torch.Generator, device):
         super().__init__()
@@ -106,8 +110,11 @@ class AttnBlock(nn.Module):
         self.attn = attention.init(_attn_cfg(cfg, kind), dt, generator=generator,
                                    device=device)
         self.ln2 = common.Norm(d, kind=cfg.norm, dtype=dt, device=device)
-        self.mlp = common.MLP(d, cfg.d_ff, gated=cfg.mlp_gated, bias=False, act=cfg.act,
-                              dtype=dt, generator=generator, device=device)
+        if kind == "moe":
+            self.moe = moe.init(cfg.moe_cfg, dt, generator=generator, device=device)
+        else:
+            self.mlp = common.MLP(d, cfg.d_ff, gated=cfg.mlp_gated, bias=False,
+                                  act=cfg.act, dtype=dt, generator=generator, device=device)
 
 
 class MambaBlock(nn.Module):
@@ -143,12 +150,21 @@ def init(cfg: LMConfig, *, generator: torch.Generator, device) -> LM:
     return LM(cfg, generator=generator, device=device)
 
 
+def _ffn(blk, cfg: LMConfig, kind: str, z):
+    """The block's FFN on z: (y, the MoE's aux dict or None)."""
+    if kind == "moe":
+        return moe.forward(blk.moe, cfg.moe_cfg, z)
+    return blk.mlp(z), None
+
+
 def _block_forward(blk, cfg: LMConfig, kind: str, h, positions, *, impl):
+    """(h, the MoE's aux dict or None)."""
     if kind == "mamba":
-        return h + mamba2.forward(blk.mamba, cfg.mamba_cfg, blk.ln(h), impl=impl)
+        return h + mamba2.forward(blk.mamba, cfg.mamba_cfg, blk.ln(h), impl=impl), None
     h = h + attention.forward(blk.attn, _attn_cfg(cfg, kind), blk.ln1(h),
                               positions=positions, impl=impl)
-    return h + blk.mlp(blk.ln2(h))
+    y, aux = _ffn(blk, cfg, kind, blk.ln2(h))
+    return h + y, aux
 
 
 def _block_prefill(blk, cfg: LMConfig, kind: str, h, positions, max_len, *, impl):
@@ -160,7 +176,7 @@ def _block_prefill(blk, cfg: LMConfig, kind: str, h, positions, max_len, *, impl
                                  positions=positions, return_cache=True,
                                  max_cache_len=max_len, impl=impl)
     h = h + a
-    return h + blk.mlp(blk.ln2(h)), cache
+    return h + _ffn(blk, cfg, kind, blk.ln2(h))[0], cache
 
 
 def _block_decode(blk, cfg: LMConfig, kind: str, h, cache, *, impl):
@@ -170,7 +186,7 @@ def _block_decode(blk, cfg: LMConfig, kind: str, h, cache, *, impl):
     a, cache = attention.decode_step(blk.attn, _attn_cfg(cfg, kind), blk.ln1(h), cache,
                                      impl=impl)
     h = h + a
-    return h + blk.mlp(blk.ln2(h)), cache
+    return h + _ffn(blk, cfg, kind, blk.ln2(h))[0], cache
 
 
 def _embed_inputs(cfg: LMConfig, model: LM, tokens: torch.Tensor) -> torch.Tensor:
@@ -199,24 +215,28 @@ def forward(cfg: LMConfig, model: LM, tokens: torch.Tensor, images=None, *,
     layer for every config.
     """
     if images is not None:
-        raise NotImplementedError(f"images: {NOT_PORTED}")
+        raise NotImplementedError(f"images: {NOT_PORTED['vision']}")
     h = _embed_inputs(cfg, model, tokens)
     positions = torch.arange(h.shape[1], device=h.device)
     remat = cfg.remat and torch.is_grad_enabled()
+    lb = z = torch.zeros((), dtype=torch.float32, device=h.device)
     for blk, kind in zip(model.blocks, cfg.kinds()):
         if remat:
-            h = checkpoint(_block_forward, blk, cfg, kind, h, positions, impl=impl,
-                           use_reentrant=False, preserve_rng_state=False)
+            h, moe_aux = checkpoint(_block_forward, blk, cfg, kind, h, positions, impl=impl,
+                                    use_reentrant=False, preserve_rng_state=False)
         else:
-            h = _block_forward(blk, cfg, kind, h, positions, impl=impl)
-    zero = torch.zeros((), dtype=torch.float32, device=h.device)
-    return _logits(cfg, model, h), {"lb": zero, "z": zero}
+            h, moe_aux = _block_forward(blk, cfg, kind, h, positions, impl=impl)
+        if moe_aux is not None:  # summed in layer order, as the reference's scan carry
+            lb = lb + moe_aux["load_balance_loss"]
+            z = z + moe_aux["router_z_loss"]
+    return _logits(cfg, model, h), {"lb": lb, "z": z}
 
 
 def loss_fn(cfg: LMConfig, model: LM, batch, *, impl: Optional[str] = None):
     """batch {tokens (b, s), labels (b, s), [mask]} -> (loss, {ce, lb, z}),
-    the reference's ``loss_fn``; the MoE terms are zero (no MoE kind is
-    ported)."""
+    the reference's ``loss_fn``: cross-entropy plus the MoE layers' summed
+    load-balance and router z-losses, weighted by ``cfg.moe_aux_weight``
+    and ``cfg.moe_z_weight`` (zero without MoE layers)."""
     logits, aux = forward(cfg, model, batch["tokens"], batch.get("images"), impl=impl)
     loss = common.cross_entropy(logits, batch["labels"], batch.get("mask"))
     total = loss + cfg.moe_aux_weight * aux["lb"] + cfg.moe_z_weight * aux["z"]
@@ -228,7 +248,7 @@ def prefill(cfg: LMConfig, model: LM, tokens: torch.Tensor, *, max_cache_len: in
     """Build decode caches from a full prompt: (caches, logits of the last
     position (b, 1, vocab) f32)."""
     if images is not None:
-        raise NotImplementedError(f"images: {NOT_PORTED}")
+        raise NotImplementedError(f"images: {NOT_PORTED['vision']}")
     h = _embed_inputs(cfg, model, tokens)
     positions = torch.arange(h.shape[1], device=h.device)
     caches = []

@@ -1,10 +1,14 @@
 """Write tests/data/torch_port_serve_golden.npz from the JAX package.
 
-For starcoder2-3b and mamba2-130m at SMOKE width (float32): the
-reference's weights (``lm.init`` with ``jax.random.PRNGKey(SEED)``), fixed
+For every arch of the port at SMOKE width (float32): the weights, fixed
 prompts (numpy seed), the prefill logits, every greedy decode step's logits
 and the greedy tokens, from the reference's ``make_prefill`` /
-``make_serve_step`` with a cache of prompt + gen + 8 slots. The port's
+``make_serve_step`` with a cache of prompt + gen + 8 slots. starcoder2-3b
+and mamba2-130m keep the reference's own weights (``lm.init`` with
+``jax.random.PRNGKey(SEED)``; the training golden starts from them); the
+other archs' weights are drawn from a numpy seed
+(``repro_torch.convert.seeded_reference_params``) and the golden holds
+the seed and the leaves' shapes, not the weights. The port's
 ``chip_smoke.py`` loads the weights into the port on the card and holds
 its logits and tokens against these (the card's machine has no JAX). JAX
 runs on the CPU:
@@ -12,7 +16,8 @@ runs on the CPU:
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/helpers/make_torch_port_serve_golden.py
 
 Keys, per arch ``<a>``: ``<a>/param/<path>`` (the reference's pytree,
-``blocks.<i>.`` for pattern position i, stacked over groups),
+``blocks.<i>.`` for pattern position i, stacked over groups), or
+``<a>/param_seed`` and ``<a>/param_shapes`` (JSON: {path: shape}),
 ``<a>/prompts``, ``<a>/prefill_logits`` (b, 1, vocab),
 ``<a>/step_logits`` (gen - 1, b, 1, vocab), ``<a>/tokens`` (b, gen) and
 ``<a>/min_top2_gap``, the smallest gap between the two largest logits of
@@ -20,6 +25,7 @@ any greedy pick (a pick closer than the comparison's tolerance would be a
 tie, not a check).
 """
 
+import json
 import os
 import sys
 
@@ -30,10 +36,14 @@ import numpy as np
 from repro.configs import get_arch
 from repro.launch import steps
 from repro.models import lm
+from repro_torch.convert import seeded_reference_params
 
 SEED = 12
-ARCHS = ("starcoder2-3b", "mamba2-130m")
+ARCHS = ("starcoder2-3b", "mamba2-130m", "granite-20b", "qwen1.5-110b", "gemma3-12b",
+         "granite-moe-1b-a400m", "phi3.5-moe-42b-a6.6b")
 BATCH, PROMPT_LEN, GEN = 2, 40, 8
+# the archs whose golden holds the reference's own weights
+STORED = ("starcoder2-3b", "mamba2-130m")
 OUT = os.path.join(os.path.dirname(__file__), "..", "data", "torch_port_serve_golden.npz")
 
 
@@ -57,6 +67,9 @@ def golden(arch_id: str) -> dict:
     arch = get_arch(arch_id)
     cfg = arch.smoke
     params = lm.init(jax.random.PRNGKey(SEED), cfg)
+    if arch_id not in STORED:
+        shapes = {k: list(v.shape) for k, v in _flatten(params, "")}
+        params = jax.tree_util.tree_map(jnp.asarray, seeded_reference_params(shapes, SEED))
     rng = np.random.default_rng(SEED)
     prompts = np.concatenate([rng.integers(0, cfg.vocab, (1, PROMPT_LEN)).astype(np.int32)
                               for _ in range(BATCH)], 0)
@@ -71,7 +84,11 @@ def golden(arch_id: str) -> dict:
         tokens.append(np.asarray(tok))
         step_logits.append(np.asarray(logits))
         gaps.append(_top2_gap(np.asarray(logits)))
-    out = {f"{arch_id}/param/{k}": v for k, v in _flatten(params, "")}
+    if arch_id in STORED:
+        out = {f"{arch_id}/param/{k}": v for k, v in _flatten(params, "")}
+    else:
+        out = {f"{arch_id}/param_seed": np.int64(SEED),
+               f"{arch_id}/param_shapes": np.array(json.dumps(shapes, sort_keys=True))}
     out.update({
         f"{arch_id}/prompts": prompts,
         f"{arch_id}/prefill_logits": prefill_logits,

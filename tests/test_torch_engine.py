@@ -22,11 +22,13 @@ import dataclasses
 import numpy as np
 import pytest
 
+from repro.configs.base import SHAPES as J_SHAPES
 from repro.core import engine as jeng
 from repro.core import power as jpow
 from repro.core.node_sim import Node
 from repro.fleet.cluster import family_key as j_family_key
 from repro_torch import convert
+from repro_torch.configs.base import SHAPES as T_SHAPES
 from repro_torch.core import engine as teng
 from repro_torch.fleet.cluster import AppTerms, family_key as t_family_key
 
@@ -237,8 +239,16 @@ def test_solve_grid_semantics_are_the_references():
 
 
 def test_terms_analytic_waits_for_the_model_zoo():
-    with pytest.raises(NotImplementedError, match="A8"):
-        teng.terms_analytic("qwen1.5-110b", object())
+    """The reference's archs that are not ported raise and name their item
+    (no roofline from a stand-in count); the ported ones count their
+    parameters (``tests/test_torch_zoo.py`` holds them to the reference)."""
+    for arch_id, item in (("zamba2-7b", "A8c"), ("phi-3-vision-4.2b", "A8d"),
+                          ("whisper-medium", "A8e")):
+        with pytest.raises(NotImplementedError, match=item):
+            teng.terms_analytic(arch_id, object())
+    got = teng.terms_analytic("qwen1.5-110b", T_SHAPES["train_4k"])
+    assert dataclasses.astuple(got) == dataclasses.astuple(
+        jeng.terms_analytic("qwen1.5-110b", J_SHAPES["train_4k"]))
 
 
 def test_terms_from_dryrun_reads_json(tmp_path):

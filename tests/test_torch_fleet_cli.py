@@ -186,6 +186,27 @@ def test_smoke_service_phase_on_the_host(smoke, smoke_quick, monkeypatch, tmp_pa
         smoke._service_runs(torch, "host", moved)
 
 
+def test_smoke_mixed_phase_on_the_host(smoke, monkeypatch, tmp_path, capsys):
+    """Phase 5d on the host: ``--quick --mixed`` against the golden, the
+    service run, its kill at the golden's kill point and resume, and
+    ``launch.train --auto-energy``'s plan against the reference's; a
+    golden moved by one joule is refused."""
+    monkeypatch.setattr(smoke, "SERVICE_DIR", str(tmp_path))
+    pred_rel = smoke.phase_mixed(torch, np, "host")
+    assert 0 < pred_rel <= smoke.FLEET_PRED_REL
+    out = capsys.readouterr().out
+    assert out.count("bit for bit") == 3 and "equal to the JAX package's plan" in out
+    assert "4 of 12 jobs are the zoo's TPU workloads" in out
+    with open(GOLDEN) as f:
+        golden = json.load(f)
+    golden["mixed"]["service"]["total_energy_j"] += 1.0
+    moved = tmp_path / "moved.json"
+    moved.write_text(json.dumps(golden))
+    monkeypatch.setattr(smoke, "FLEET_GOLDEN", str(moved))
+    with pytest.raises(AssertionError, match="golden"):
+        smoke.phase_mixed(torch, np, "host")
+
+
 # ---------------------------------------------------------------------------
 # artifact intake
 # ---------------------------------------------------------------------------
@@ -359,8 +380,15 @@ def test_planner_plans_an_artifact_like_the_reference(tmp_path):
                                                              want.frequency_ghz)
         assert got.step_time_s == pytest.approx(want.step_time_s, rel=PRED_REL)
     assert mine.engine.device == torch.device(CPU)
-    with pytest.raises(NotImplementedError, match="A8"):
-        mine.plan_for_workload("starcoder2-3b", SHAPES["train_4k"])  # terms_analytic
+    # no artifact for a zoo arch: both take the analytic roofline
+    for arch in ("starcoder2-3b", "gemma3-12b"):
+        got = mine.plan_for_workload(arch, SHAPES["train_4k"])
+        want = theirs.plan_for_workload(arch, REF_SHAPES["train_4k"])
+        assert got.terms_source == want.terms_source == "analytic"
+        assert (got.chips, got.pods, got.frequency_ghz) == (want.chips, want.pods,
+                                                             want.frequency_ghz)
+        assert got.step_time_s == pytest.approx(want.step_time_s, rel=PRED_REL)
+        assert got.energy_per_step_j == pytest.approx(want.energy_per_step_j, rel=PRED_REL)
 
 
 def _service_lines(module, argv):
@@ -381,19 +409,16 @@ SERVICE_RUNS = {
     "journal": [["--quick", "--service", "--journal", "{j}"]],
     "kill-resume": [["--quick", "--service", "--journal", "{j}", "--kill-at", "1500"],
                     ["--resume", "{j}"]],
+    # the mixed CPU + TPU pool (the zoo's TPU jobs on the analytic roofline)
+    "mixed": [["--quick", "--service", "--mixed"]],
 }
 
 
-@pytest.mark.parametrize("run", sorted(SERVICE_RUNS) + ["mixed"])
+@pytest.mark.parametrize("run", sorted(SERVICE_RUNS))
 def test_service_flags_print_the_reference_service_line(run, tmp_path):
     """``--service``, ``--service --journal``, ``--kill-at`` then
-    ``--resume``: the port prints the reference CLI's lines, word for
-    word; ``--service --mixed`` waits on the model zoo, as ``--mixed``
-    does."""
-    if run == "mixed":
-        with pytest.raises(NotImplementedError, match="A8"):
-            port_main.main(["--quick", "--service", "--mixed", "--device", CPU])
-        return
+    ``--resume``, ``--service --mixed``: the port prints the reference
+    CLI's lines, word for word."""
     for step in SERVICE_RUNS[run]:
         mine = [a.format(j=str(tmp_path / "port.json")) for a in step]
         theirs = [a.format(j=str(tmp_path / "ref.json")) for a in step]
@@ -401,18 +426,91 @@ def test_service_flags_print_the_reference_service_line(run, tmp_path):
         want = _service_lines(ref_main, theirs)
         want = [ln.replace("python -m repro.fleet", "python -m repro_torch.fleet") for ln in want]
         assert got == want and got, step
-    if run != "service":
+    if "--journal" in SERVICE_RUNS[run][0]:
         port_doc = json.loads((tmp_path / "port.json").read_text())
         ref_doc = json.loads((tmp_path / "ref.json").read_text())
         assert port_doc["config"] == ref_doc["config"]
         assert port_doc["n_batches"] == ref_doc["n_batches"]
 
 
-def test_mixed_without_an_artifact_reaches_terms_analytic():
-    # the zoo's TPU jobs take their terms from a dry-run artifact, else the
-    # analytic roofline, which waits on the model zoo
-    with pytest.raises(NotImplementedError, match="A8"):
-        port_main.main(["--quick", "--mixed", "--device", CPU])
+@pytest.fixture(scope="module")
+def mixed_runs():
+    """``--quick --mixed`` in both packages: (report, scheduler, printed)."""
+    argv = ["--quick", "--mixed"]
+    return _printed(ref_main, argv), _printed(port_main, argv + ["--device", CPU])
+
+
+def test_mixed_without_an_artifact_reaches_terms_analytic(mixed_runs):
+    """The zoo's TPU jobs take their terms from a dry-run artifact, else the
+    analytic roofline: the port prints the reference's table row for row,
+    completes the same jobs, and the golden's ``mixed`` lockstep run is
+    what the live reference computes."""
+    (ref_rep, ref_sched, ref_out), (rep, sched, out) = mixed_runs
+    assert out == ref_out and "fleet: 4 nodes, 12 jobs" in out
+    assert job_rows(sched) == job_rows(ref_sched)
+    assert sum(c.placement.job.device == "tpu" for c in sched.completed) == 4
+    with open(GOLDEN) as f:
+        gold = json.load(f)["mixed"]["lockstep"]
+    live = json.loads(json.dumps(dict(argv=["--quick", "--mixed"],
+                                      **run_record(ref_rep, ref_sched))))
+    assert live == gold
+    mine = json.loads(json.dumps(run_record(rep, sched)))
+    for key in ("jobs", "scenarios", "refits", "migrations"):
+        assert mine[key] == gold[key], key
+    np.testing.assert_allclose(mine["predicted_energy_j"], gold["predicted_energy_j"],
+                               rtol=PRED_REL, atol=0)
+
+
+def _same_document(mine, theirs, where="$"):
+    """Keys, types and non-float values of two JSON documents equal; floats
+    within PRED_REL (1e-9 absolute near zero). The telemetry's prediction
+    errors, observed / predicted - 1, move by (1 + error) x the
+    prediction's relative difference, so they are held to PRED_REL x
+    (1 + |error|)."""
+    assert type(mine) is type(theirs) or {type(mine), type(theirs)} <= {int, float}, where
+    if isinstance(mine, dict):
+        assert sorted(mine) == sorted(theirs), where
+        for k in mine:
+            _same_document(mine[k], theirs[k], f"{where}.{k}")
+    elif isinstance(mine, list):
+        assert len(mine) == len(theirs), where
+        for i, (a, b) in enumerate(zip(mine, theirs)):
+            _same_document(a, b, f"{where}[{i}]")
+    elif isinstance(mine, float) or isinstance(theirs, float):
+        scale = 1.0 + abs(theirs) if ".telemetry.errors" in where else abs(theirs)
+        assert abs(mine - theirs) <= max(1e-9, PRED_REL * scale), (where, mine, theirs)
+    else:
+        assert mine == theirs, where
+
+
+def test_mixed_service_kill_and_resume_match_the_reference(tmp_path):
+    """``--quick --service --mixed`` killed before its middle batch (the
+    golden's kill point) in both packages: the journals hold the same keys
+    and non-float values, floats within PRED_REL; the port's resume prints
+    the reference's uninterrupted service line; and the golden's ``mixed``
+    service run is what the live reference computes."""
+    from helpers.make_torch_port_fleet_golden import mixed_service_record
+
+    with open(GOLDEN) as f:
+        gold = json.load(f)["mixed"]
+    assert json.loads(json.dumps(mixed_service_record(ref_main))) == gold["service"]
+    kill = gold["service"]["kill"]
+    argv = ["--quick", "--service", "--mixed", "--journal", "{j}", "--kill-at",
+            repr(kill["at_s"])]
+    for pkg, extra in ((port_main, ["--device", CPU]), (ref_main, [])):
+        pkg.main([a.format(j=str(tmp_path / f"{pkg.__name__}.json")) for a in argv] + extra)
+    mine = json.loads((tmp_path / f"{port_main.__name__}.json").read_text())
+    theirs = json.loads((tmp_path / f"{ref_main.__name__}.json").read_text())
+    assert (mine["n_batches"], mine["now_s"]) == (kill["committed"], kill["now_s"])
+    _same_document(mine, theirs)
+    resumed = _service_lines(port_main, ["--resume", str(tmp_path / f"{port_main.__name__}.json"),
+                                         "--device", CPU])
+    uninterrupted = _service_lines(ref_main, ["--quick", "--service", "--mixed"])
+    # the resumed run prints the uninterrupted one's jobs, energy, makespan,
+    # misses and batch count
+    assert [ln for ln in resumed if ln.startswith("service (resumed):")] == [
+        ln.replace("service:", "service (resumed):").replace("reaction rounds", "batches total")
+        for ln in uninterrupted]
 
 
 def test_service_mode_and_default_device_raise():

@@ -17,6 +17,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import gemma3_12b as r_gemma_cfg
+from repro.configs import granite_moe_1b_a400m as r_gmoe_cfg
 from repro.configs import mamba2_130m as r_mamba_cfg
 from repro.configs import starcoder2_3b as r_star_cfg
 from repro.models import attention as r_attention
@@ -24,6 +26,8 @@ from repro.models import common as r_common
 from repro.models import lm as r_lm
 from repro.models import mamba2 as r_mamba2
 from repro_torch import convert
+from repro_torch.configs import gemma3_12b as p_gemma_cfg
+from repro_torch.configs import granite_moe_1b_a400m as p_gmoe_cfg
 from repro_torch.configs import mamba2_130m as p_mamba_cfg
 from repro_torch.configs import starcoder2_3b as p_star_cfg
 from repro_torch.models import attention, common, lm, mamba2
@@ -297,6 +301,8 @@ LM_CASES = {
     "starcoder2": (r_star_cfg.SMOKE, p_star_cfg.SMOKE),
     "mamba2": (r_mamba_cfg.SMOKE, p_mamba_cfg.SMOKE),
     "local+attn": (LOCAL_R, LOCAL_P),
+    "gemma3": (r_gemma_cfg.SMOKE, p_gemma_cfg.SMOKE),
+    "granite-moe": (r_gmoe_cfg.SMOKE, p_gmoe_cfg.SMOKE),
 }
 
 
@@ -350,8 +356,9 @@ def test_lm_prefill_and_decode_match_reference(case):
         tok = jnp.argmax(r_logits[:, -1], axis=-1).astype(jnp.int32)[:, None]
 
 
-@pytest.mark.parametrize("case", ["starcoder2", "mamba2"])
+@pytest.mark.parametrize("case", ["starcoder2", "mamba2", "gemma3", "granite-moe"])
 def test_lm_forward_matches_reference(case):
+    """Logits, and the MoE layers' summed aux losses (zero without them)."""
     r_cfg, p_cfg = LM_CASES[case]
     params = r_lm.init(jax.random.PRNGKey(13), r_cfg)
     model = convert.lm_params_from_reference(_np(params), p_cfg, CPU)
@@ -359,7 +366,10 @@ def test_lm_forward_matches_reference(case):
     r_logits, r_aux = r_lm_forward(r_cfg, params, jnp.asarray(tokens))
     p_logits, p_aux = lm.forward(p_cfg, model, torch.as_tensor(tokens, dtype=torch.long))
     _close(p_logits, r_logits, atol=2e-5)
-    assert float(p_aux["lb"]) == float(r_aux["lb"]) == 0.0
+    for key in ("lb", "z"):
+        assert float(p_aux[key]) == pytest.approx(float(r_aux[key]), rel=1e-5, abs=1e-6)
+    if p_cfg.moe_cfg is None:
+        assert float(p_aux["lb"]) == float(r_aux["lb"]) == 0.0
 
 
 def test_lm_init_caches_match_reference_shapes():
@@ -370,11 +380,11 @@ def test_lm_init_caches_match_reference_shapes():
            [{k: v.shape for k, v in c.items() if k != "idx"} for c in ref]
 
 
-@pytest.mark.parametrize("change", [dict(pattern=("moe",)), dict(shared_attn=True),
-                                    dict(vision=lm.VisionStub(4, 8))])
-def test_unported_block_kinds_raise_and_name_the_roadmap_item(change):
+@pytest.mark.parametrize("change,item", [(dict(shared_attn=True), "A8c"),
+                                         (dict(vision=lm.VisionStub(4, 8)), "A8d")])
+def test_unported_block_kinds_raise_and_name_the_roadmap_item(change, item):
     cfg = dataclasses.replace(p_star_cfg.SMOKE, **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         lm.init(cfg, generator=GEN, device=CPU)
 
 

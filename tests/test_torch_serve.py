@@ -50,7 +50,7 @@ def _ref_fields(cfg):
     return out
 
 
-@pytest.mark.parametrize("arch_id", ["starcoder2-3b", "mamba2-130m"])
+@pytest.mark.parametrize("arch_id", sorted(configs.ARCHS))
 def test_configs_keep_the_reference_numbers(arch_id):
     port, ref = configs.get_arch(arch_id), r_configs.get_arch(arch_id)
     for which in ("full", "smoke"):
@@ -67,10 +67,13 @@ def test_example_configs_keep_the_reference_numbers():
 
 
 def test_registry_holds_the_ported_archs_and_names_the_rest():
-    assert sorted(configs.ARCHS) == ["mamba2-130m", "starcoder2-3b"]
+    assert sorted(configs.ARCHS) == [
+        "gemma3-12b", "granite-20b", "granite-moe-1b-a400m", "mamba2-130m",
+        "phi3.5-moe-42b-a6.6b", "qwen1.5-110b", "starcoder2-3b"]
     assert sorted([*configs.ARCHS, *configs.NOT_PORTED]) == sorted(r_configs.ARCHS)
-    for arch_id in configs.NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+    for arch_id, item in (("zamba2-7b", "A8c"), ("phi-3-vision-4.2b", "A8d"),
+                          ("whisper-medium", "A8e")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             configs.get_arch(arch_id)
     with pytest.raises(KeyError):
         configs.get_arch("no-such-arch")
@@ -92,7 +95,7 @@ def test_prompts_are_the_reference_draws():
     np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("arch_id", ["starcoder2-3b", "mamba2-130m"])
+@pytest.mark.parametrize("arch_id", sorted(configs.ARCHS))
 def test_serve_run_matches_reference_prefill_and_serve_steps(arch_id):
     """``serve.run`` against the reference's ``make_prefill`` /
     ``make_serve_step`` (jitted as its ``serve.main`` does) on the same
@@ -152,7 +155,8 @@ def test_serve_sizes_the_cache_prompt_plus_gen_plus_8(monkeypatch):
     assert seen["max_cache_len"] == 9 + 3 + 8
 
 
-@pytest.mark.parametrize("arch", ["starcoder2-3b", "mamba2-130m", "example-10m"])
+@pytest.mark.parametrize("arch", ["starcoder2-3b", "mamba2-130m", "example-10m", "gemma3-12b",
+                                  "granite-moe-1b-a400m"])
 def test_serve_main_end_to_end_on_the_host(arch, capsys):
     argv = ["--arch", arch, "--device", "cpu", "--batch", "2", "--prompt-len", "20",
             "--gen", "4"]

@@ -324,14 +324,26 @@ def test_train_main_on_the_host(arch_id, compress_flag, tmp_path):
 def test_train_main_refuses_what_is_not_ported(tmp_path):
     base = ["--arch", "mamba2-130m", "--smoke", "--device", "cpu", "--steps", "1",
             "--ckpt-dir", str(tmp_path)]
-    # no dry-run artifact for the arch: the planner reaches terms_analytic
-    with pytest.raises(NotImplementedError, match="A8"):
-        train.main(base + ["--auto-energy"])
     with pytest.raises(NotImplementedError, match="A9"):
         train.main(base + ["--compress", "--mesh", "1x2"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train.main(["--arch", "mamba2-130m", "--smoke", "--steps", "1"])
+
+
+def test_train_auto_energy_logs_the_reference_plan(tmp_path, capsys):
+    """``--auto-energy`` with no dry-run artifact for the arch: the planner
+    takes the analytic roofline and logs the plan the reference's
+    ``launch.train`` logs, line for line."""
+    from repro.launch import train as r_train
+
+    argv = ["--arch", "mamba2-130m", "--smoke", "--steps", "1", "--auto-energy"]
+    train.main(argv + ["--device", "cpu", "--ckpt-dir", str(tmp_path / "port")])
+    got = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("[auto-energy]")]
+    r_train.main(argv + ["--ckpt-dir", str(tmp_path / "ref")])
+    want = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("[auto-energy]")]
+    assert got == want and len(got) == 1
+    assert "perf model: analytic" in got[0]
 
 
 def test_data_group_backend_follows_the_device():
