@@ -23,11 +23,16 @@ Phases (every failure raises; nothing is caught):
    decode step) and at phase 6b's other serving shapes (gemma3-12b's
    prefill, ring decode step and global decode step at head dim 256,
    granite-20b's MQA decode step of 48 query heads over one KV head,
-   granite-moe-1b-a400m's prefill and decode at head dim 64), its output
-   and its lse (with
+   granite-moe-1b-a400m's prefill and decode at head dim 64), at the rest
+   of the zoo's (whisper-medium's bidirectional encoder over 1,500 frames,
+   its cross-attention at prefill and decode and its causal self-attention;
+   phi-3-vision-4.2b's prefill of 576 patches + 1,024 tokens and decode at
+   head dim 96, zamba2-7b's shared attention at 112, both padded to 128,
+   with the padding's own cost a decode step), its output and its lse (with
    F.scaled_dot_product_attention, given the window's mask, timed as the
    library yardstick; the port never calls it), ssd_chunks at mamba2-130m's
-   prefill and training shapes, the int8 codec at starcoder2-3b's embedding
+   prefill and training shapes and zamba2-7b's prefill (two groups of 56
+   heads, state 64), the int8 codec at starcoder2-3b's embedding
    and MLP weights, a ragged size and edge blocks (zero, NaN, inf,
    half-way).
 4. paper loop: evaluate.compare_governors at full characterization
@@ -100,19 +105,22 @@ Phases (every failure raises; nothing is caught):
    against the JAX package's (the golden's "auto_energy" entry). The
    planning kernels' launches are counted from 0, printed by shape and
    every call replayed against the plain version, as in 5b.
-6. serve: (a) every arch of the port at SMOKE width on the card, with the
-   kernels, on the weights and prompts of
-   tests/data/torch_port_serve_golden.npz (the JAX package's own weights,
-   or weights drawn from the seed it names): prefill logits, every decode
-   step's logits and the greedy tokens against the JAX package's;
-   (b) launch.serve.main at full width for starcoder2-3b, mamba2-130m,
-   gemma3-12b, granite-20b and granite-moe-1b-a400m (batch 8, prompt
-   1,024, gen 32, random weights from a seed), one model on the card at a
-   time, once to warm up and once counted (prefill ms, decode tok/s, peak
-   memory, flash_attention's launches by path and head dim), then the
-   plain arm (impl="ref") on the same weights, fed the kernel arm's
-   tokens: prefill and step logits must agree within SERVE_FULL_REL of
-   their scale.
+6. serve: (a) all ten archs at SMOKE width on the card, with the
+   kernels, on the weights, prompts (whisper's frames, phi-3-vision's
+   patches) of tests/data/torch_port_serve_golden.npz (the JAX package's
+   own weights, or weights drawn from the seed it names): prefill logits,
+   every decode step's logits, the greedy tokens against the JAX
+   package's and each kernel's launches; (b) full width, batch 8, gen 32,
+   random weights from a seed: launch.serve.main (prompt 1,024) for
+   starcoder2-3b, mamba2-130m, gemma3-12b, granite-20b,
+   granite-moe-1b-a400m and zamba2-7b, serve.run with 576 image patches +
+   1,024 tokens for phi-3-vision-4.2b and with 1,500 encoder frames under
+   a prompt of 64 for whisper-medium; one model on the card at a time,
+   once to warm up and once counted (prefill ms, decode tok/s, peak
+   memory, each kernel's launches and flash_attention's by path and head
+   dim), then the plain arm (impl="ref") on the same weights and inputs,
+   fed the kernel arm's tokens: prefill and step logits must agree within
+   SERVE_FULL_REL of their scale.
 7. train golden: starcoder2-3b and mamba2-130m at SMOKE width on the
    card, with the kernels, on the JAX package's weights and its pipeline's
    batches: three steps of launch.steps.make_train_step and three of the
@@ -225,18 +233,29 @@ SSD_REL = 1e-4
 SERVE_GOLDEN_ATOL = 1e-4
 # serve at full width (bf16), kernel arm vs plain arm, teacher-forced:
 # bf16 activations round at other places once the attention or SSD output
-# differs by an ulp (2^-8 relative), and 24-52 layers carry that on, about
-# 2^-8 x sqrt(52) ~ 3% (gemma3-12b's 48 layers read 3.8% on an H100);
+# differs by an ulp (2^-8 relative), and 24-108 layers carry that on, about
+# 2^-8 x sqrt(layers): 3% at 52 (gemma3-12b's 48 layers read 3.8% on an
+# H100), 4% at zamba2-7b's 81 Mamba2 layers and 27 shared-block calls;
 # relative to max |logit|
 SERVE_FULL_REL = 0.05
 # phase 6a, SMOKE width against the JAX golden: every arch of the port
 SERVE_ARCHS = ("starcoder2-3b", "mamba2-130m", "granite-20b", "qwen1.5-110b", "gemma3-12b",
-               "granite-moe-1b-a400m", "phi3.5-moe-42b-a6.6b")
+               "granite-moe-1b-a400m", "phi3.5-moe-42b-a6.6b", "zamba2-7b",
+               "phi-3-vision-4.2b", "whisper-medium")
 # phase 6b, full width, one model on the card at a time (gemma3-12b holds
-# 23.5 GB of bf16 weights, granite-20b 40.0 GB); qwen1.5-110b (222 GB) and
-# phi3.5-moe (83.7 GB) do not fit one card
+# 23.5 GB of bf16 weights, granite-20b 40.0 GB, zamba2-7b 13.4 GB);
+# qwen1.5-110b (222 GB) and phi3.5-moe (83.7 GB) do not fit one card
 SERVE_FULL_ARCHS = ("starcoder2-3b", "mamba2-130m", "gemma3-12b", "granite-20b",
-                    "granite-moe-1b-a400m")
+                    "granite-moe-1b-a400m", "zamba2-7b", "phi-3-vision-4.2b",
+                    "whisper-medium")
+# phase 6b's inputs beside the prompts: phi-3-vision-4.2b's 576 image
+# patches (the reference's stub, before the 1,024 tokens) and
+# whisper-medium's 1,500 encoder frames (Whisper's 30-second window) under
+# a decoder prompt of 64 (64 + 32 positions, under max_target_len 448),
+# drawn from this seed; neither goes through serve.main, whose frames are
+# prompt-long and which passes no images (as the reference's main)
+SERVE_EXTRAS_SEED = 1
+WHISPER_FRAMES, WHISPER_PROMPT = 1500, 64
 TRAIN_ARCHS = ("starcoder2-3b", "mamba2-130m")
 SERVE_ARGV = ["--batch", "8", "--prompt-len", "1024", "--gen", "32"]
 TRAIN_GOLDEN = os.path.join(HERE, "tests", "data", "torch_port_train_golden.npz")
@@ -778,6 +797,37 @@ def _check_flash(torch, np, rng, kind):
     d64 = _flash_case(torch, np, rng, kind, 8, 16, 8, 1024, 1024, 64, bf16, causal=True)
     d64_decode = _flash_case(torch, np, rng, kind, 8, 16, 8, 1, 1064, 64, bf16, causal=False,
                              q_offset=1055, kv_len=1056)
+    # the rest of the zoo at phase 6b's shapes (batch 8): whisper-medium's
+    # encoder (1,500 frames, bidirectional), its cross-attention at prefill
+    # (64 decoder rows over the 1,500 frames) and at decode (a full cross
+    # cache), its causal self-attention over the 64-token prompt and a
+    # decode step over its 104-slot cache; phi-3-vision-4.2b's prefill of
+    # 576 patches + 1,024 tokens and a decode step over its 1,640-slot
+    # cache (head dim 96, padded to 128); zamba2-7b's shared attention,
+    # prefill and a decode step over 1,064 slots (head dim 112, padded);
+    # inputs of their own seed, so the shapes above keep theirs
+    rng = np.random.default_rng(SEED + 3)
+    zoo = {
+        "whisper_enc": _flash_case(torch, np, rng, kind, 8, 16, 16, WHISPER_FRAMES,
+                                   WHISPER_FRAMES, 64, bf16, causal=False),
+        "whisper_cross": _flash_case(torch, np, rng, kind, 8, 16, 16, WHISPER_PROMPT,
+                                     WHISPER_FRAMES, 64, bf16, causal=False),
+        "whisper_cross_decode": _flash_case(torch, np, rng, kind, 8, 16, 16, 1,
+                                            WHISPER_FRAMES, 64, bf16, causal=False,
+                                            kv_len=WHISPER_FRAMES),
+        "whisper_self": _flash_case(torch, np, rng, kind, 8, 16, 16, WHISPER_PROMPT,
+                                    WHISPER_PROMPT, 64, bf16, causal=True),
+        "whisper_self_decode": _flash_case(torch, np, rng, kind, 8, 16, 16, 1, 104, 64, bf16,
+                                           causal=False, q_offset=94, kv_len=95),
+        "phi3v": _flash_case(torch, np, rng, kind, 8, 32, 32, 1600, 1600, 96, bf16,
+                             causal=True),
+        "phi3v_decode": _flash_case(torch, np, rng, kind, 8, 32, 32, 1, 1640, 96, bf16,
+                                    causal=False, q_offset=1630, kv_len=1631),
+        "zamba2": _flash_case(torch, np, rng, kind, 8, 32, 32, 1024, 1024, 112, bf16,
+                              causal=True),
+        "zamba2_decode": _flash_case(torch, np, rng, kind, 8, 32, 32, 1, 1064, 112, bf16,
+                                     causal=False, q_offset=1054, kv_len=1055),
+    }
     # the JSON line carries the prefill shape, the larger share of the
     # serving time, and the other shapes' errors and times under their own
     # keys
@@ -785,10 +835,42 @@ def _check_flash(torch, np, rng, kind):
     for name, r in (("decode", decode), ("train", train), ("d256", d256),
                     ("d256_decode", d256_decode), ("d256_serve", d256_serve),
                     ("d256_ring", d256_ring), ("d256_global", d256_global),
-                    ("mqa_decode", mqa_decode), ("d64", d64), ("d64_decode", d64_decode)):
+                    ("mqa_decode", mqa_decode), ("d64", d64), ("d64_decode", d64_decode),
+                    *zoo.items()):
         for key in ("max_abs_err", "lse_max_abs_err", "ms", "library_ms", "bound_ms"):
             out[f"{name}_{key}"] = r[key]
+    # the head-dim padding a decode step pays: every call pads q, k and v,
+    # and at decode k and v are the whole cache
+    for name, h, slots, d, layers in (("phi3v", 32, 1640, 96, 32),
+                                      ("zamba2", 32, 1064, 112, 27)):
+        out.update({f"{name}_pad_{k}": v for k, v in
+                    _pad_cost(torch, name, 8, h, slots, d, layers, kind).items()})
     return out
+
+
+def _pad_cost(torch, name, b, h, slots, d, layers, kind):
+    """The wrapper's zero-padding of q (one row) and a decode step's k and
+    v caches from head dim ``d`` to 128, alone: ms a call from CUDA-graph
+    replays, the bytes it moves (each cache read once, its padded copy
+    written once), and both over the step's ``layers`` attention calls."""
+    from repro_torch.kernels.flash_attention import PADDED_HEAD_DIMS
+
+    dev = torch.device(DEVICE)
+    width = PADDED_HEAD_DIMS[d] - d
+    q = torch.zeros((b, h, 1, d), dtype=torch.bfloat16, device=dev)
+    k = torch.zeros((b, h, slots, d), dtype=torch.bfloat16, device=dev)
+    v = torch.zeros_like(k)
+    pad = torch.nn.functional.pad
+    ms = _time_ms(torch, lambda: [pad(t, (0, width)) for t in (q, k, v)], 20)
+    n_bytes = 2.0 * sum(t.numel() * (1 + PADDED_HEAD_DIMS[d] / d) for t in (q, k, v))
+    print(f"[pad] {name} decode step: padding q, k, v from d {d} to {PADDED_HEAD_DIMS[d]} "
+          f"over a {slots}-slot cache (b {b}, h {h}) takes {ms:.4f} ms a call and moves "
+          f"{n_bytes / 1e6:.1f} MB ({n_bytes / 1e6 / max(ms, 1e-9) / 1e3:.2f} TB/s); "
+          f"x {layers} attention calls a step: {ms * layers:.3f} ms, "
+          f"{n_bytes * layers / 1e9:.2f} GB a step, on {kind}", flush=True)
+    del q, k, v
+    torch.cuda.empty_cache()
+    return dict(ms=ms, bytes=n_bytes, step_ms=ms * layers, step_bytes=n_bytes * layers)
 
 
 def _check_ssd(torch, np, rng, kind):
@@ -797,19 +879,26 @@ def _check_ssd(torch, np, rng, kind):
     (b*h 192), and its training shape, batch 2 x 32 chunks (b*h 48)."""
     prefill = _ssd_case(torch, np, rng, kind, 8, 8)
     train = _ssd_case(torch, np, rng, kind, 2, 32)
+    # zamba2-7b's prefill: 112 heads in two groups of 56, state 64 (on
+    # 132 SMs head_slice picks 28 heads a block, two slices a group)
+    zamba2 = _ssd_case(torch, np, np.random.default_rng(SEED + 4), kind, 8, 8, h=112, g=2,
+                       n=64)
     # the JSON line carries the prefill shape (the serving path's), and the
-    # training shape's numbers under their own keys
-    return dict(prefill, **{f"train_{key}": train[key]
-                            for key in ("max_abs_err", "ms", "bound_ms", "fp32_bound_ms")})
+    # other shapes' numbers under their own keys
+    keys = ("max_abs_err", "ms", "bound_ms", "fp32_bound_ms", "plain_ms")
+    return dict(prefill, **{f"train_{key}": train[key] for key in keys},
+                **{f"zamba2_{key}": zamba2[key] for key in keys},
+                zamba2_head_slice=zamba2["head_slice"])
 
 
-def _ssd_case(torch, np, rng, kind, b, nc):
-    """One ssd_chunks shape: kernel vs plain, timed beside its bound."""
+def _ssd_case(torch, np, rng, kind, b, nc, h=24, g=1, n=128):
+    """One ssd_chunks shape (h heads in g groups, state n): kernel vs
+    plain, timed beside its bound."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.ssd_scan import _sm_count, head_slice
 
     dev = torch.device(DEVICE)
-    h, g, T, p, n = 24, 1, 128, 64, 128
+    T, p = 128, 64
 
     def t(a):
         return torch.from_numpy(a.astype(np.float32)).to(dev)
@@ -848,7 +937,7 @@ def _ssd_case(torch, np, rng, kind, b, nc):
     ms = _time_ms(torch, lambda: ops.ssd_chunks(x, dt, a, B, C, heads=h), 20)
     eager = _eager_ms(torch, lambda: ops.ssd_chunks(x, dt, a, B, C, heads=h), 20)
     plain_ms = _time_ms(torch, lambda: ops.ssd_chunks(x, dt, a, B, C, heads=h, impl="ref"), 3)
-    print(f"[kernel] ssd_chunks bh={b * h} nc={nc} T={T} p={p} n={n}: {ms:.4f} ms (eager "
+    print(f"[kernel] ssd_chunks bh={b * h} g={g} nc={nc} T={T} p={p} n={n}: {ms:.4f} ms (eager "
           f"calls {eager:.4f} ms, plain {plain_ms:.4f} ms; bound {bound * 1e3:.2f} us by {by} "
           f"in 3xTF32 on the tensor cores, C B^T once for {heads} heads ({n_bytes / 1e6:.1f} "
           f"MB, {tc_ops / 1e9:.2f} GFLOP), {ms / bound:.2f} x it; fp32-core bound "
@@ -856,7 +945,7 @@ def _ssd_case(torch, np, rng, kind, b, nc):
           f"{fp32_by}, {ms / fp32_bound:.2f} x it; max |err| {err:.3g}, worst output at "
           f"{worst:.3g} x its tolerance, {SSD_REL} of its scale) on {kind}", flush=True)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, max_abs_err=err,
-                library_ms=None, fp32_bound_ms=fp32_bound)
+                library_ms=None, fp32_bound_ms=fp32_bound, head_slice=heads)
 
 
 def _port_energy_grid(np, torch, node_seed, app, n):
@@ -1895,13 +1984,35 @@ def _reference_params(golden, arch_id: str) -> dict:
     return _golden_params(golden, f"{arch_id}/param/")
 
 
-def _kernel_of(arch_id: str) -> str:
-    return "ssd_chunks" if arch_id.startswith("mamba") else "flash_attention"
+def _serve_extras(golden, arch_id: str) -> dict:
+    """The golden's whisper frames or phi-3-vision patches, as serve.run's
+    keyword arguments."""
+    return {key: golden[f"{arch_id}/{key}"] for key in ("frames", "images")
+            if f"{arch_id}/{key}" in golden.files}
+
+
+def _serve_launches(cfg, gen: int) -> dict:
+    """The kernel launches of one serve.run of ``gen`` tokens (a prefill
+    and gen - 1 decode steps), per kernel: flash_attention once per
+    attention call (an encoder-decoder's encoder, decoder self- and
+    cross-attention at prefill, then self and cross at each step; an LM's
+    attention layers and zamba2's shared-block calls at prefill and at
+    each step), ssd_chunks once per Mamba2 layer at prefill (decode is
+    the plain recurrence)."""
+    if hasattr(cfg, "n_dec_layers"):
+        at_prefill, a_step, ssd = cfg.n_enc_layers + 2 * cfg.n_dec_layers, 2 * cfg.n_dec_layers, 0
+    else:
+        kinds = cfg.kinds()
+        ssd = kinds.count("mamba")
+        at_prefill = a_step = len(kinds) - ssd + (cfg.n_groups if cfg.shared_attn else 0)
+    return {"flash_attention": at_prefill + a_step * (gen - 1), "ssd_chunks": ssd,
+            "flash_prefill": at_prefill, "flash_step": a_step}
 
 
 def phase_serve_golden(torch, np):
     """SMOKE width on the card, with the kernels, on the JAX package's
-    weights and prompts: logits and greedy tokens against its own."""
+    weights, prompts (and whisper's frames, phi-3-vision's patches): logits
+    and greedy tokens against its own."""
     from repro_torch import convert
     from repro_torch.configs import get_arch
     from repro_torch.kernels import ops
@@ -1911,21 +2022,20 @@ def phase_serve_golden(torch, np):
     for arch_id in SERVE_ARCHS:
         arch = get_arch(arch_id)
         cfg = arch.smoke
-        model = convert.lm_params_from_reference(_reference_params(golden, arch_id), cfg,
-                                                 DEVICE)
+        model = convert.params_from_reference(_reference_params(golden, arch_id), cfg, DEVICE)
         want_tokens = golden[f"{arch_id}/tokens"]
         gen = want_tokens.shape[1]
         gap = float(golden[f"{arch_id}/min_top2_gap"])
         if gap <= 2 * SERVE_GOLDEN_ATOL:
             raise AssertionError(f"{arch_id}: golden top-2 gap {gap} is within tolerance")
-        name = _kernel_of(arch_id)
-        before = ops.LAUNCHES[name]
-        out = serve.run(arch, cfg, model, golden[f"{arch_id}/prompts"], gen)
-        launched = ops.LAUNCHES[name] - before
-        want_launches = cfg.n_layers * (1 if name == "ssd_chunks" else gen)
-        if launched != want_launches:
-            raise AssertionError(f"{arch_id}: {name} launched {launched} times, "
-                                 f"not {want_launches}")
+        before = dict(ops.LAUNCHES)
+        out = serve.run(arch, cfg, model, golden[f"{arch_id}/prompts"], gen,
+                        **_serve_extras(golden, arch_id))
+        want = _serve_launches(cfg, gen)
+        launched = {name: ops.LAUNCHES[name] - before[name]
+                    for name in ("flash_attention", "ssd_chunks")}
+        if launched != {name: want[name] for name in launched}:
+            raise AssertionError(f"{arch_id}: launches {launched}, not {want}")
         err_prefill = float(np.abs(out.prefill_logits.cpu().numpy()
                                    - golden[f"{arch_id}/prefill_logits"]).max())
         step = torch.stack(out.step_logits).cpu().numpy()
@@ -1934,7 +2044,7 @@ def phase_serve_golden(torch, np):
         print(f"[serve golden] {arch_id} SMOKE on the card: prefill logits max |err| "
               f"{err_prefill:.3g}, {gen - 1} decode steps max |err| {err_steps:.3g} "
               f"(tolerance {SERVE_GOLDEN_ATOL}), tokens equal: "
-              f"{bool((got_tokens == want_tokens).all())}, {name} launches {launched}",
+              f"{bool((got_tokens == want_tokens).all())}, launches {json.dumps(launched)}",
               flush=True)
         if max(err_prefill, err_steps) > SERVE_GOLDEN_ATOL:
             raise AssertionError(f"{arch_id}: logits differ from the JAX golden")
@@ -1956,22 +2066,56 @@ def _free(torch):
     torch.cuda.empty_cache()
 
 
+def _full_extras(np, arch_id: str, cfg, batch: int) -> dict:
+    """Phase 6b's whisper frames (batch, 1,500, d_model) or phi-3-vision
+    patches (batch, 576, d_vision), N(0, 1) float32 from
+    SERVE_EXTRAS_SEED; {} for the other archs."""
+    rng = np.random.default_rng(SERVE_EXTRAS_SEED)
+    if arch_id == "whisper-medium":
+        return {"frames": rng.standard_normal((batch, WHISPER_FRAMES, cfg.d_model),
+                                              dtype=np.float32)}
+    if getattr(cfg, "vision", None) is not None:
+        v = cfg.vision
+        return {"images": rng.standard_normal((batch, v.n_patches, v.d_vision),
+                                              dtype=np.float32)}
+    return {}
+
+
+def _serve_full_run(np, arch_id: str, args: dict, impl=None, forced=None):
+    """One full-width serving run of ``arch_id`` with seed-0 weights: the
+    kernel arm of an arch without extras through launch.serve.main (the
+    user's entry point), every other run through serve.build + serve.run
+    (steps.make_prefill with the frames or patches in the batch, then
+    make_serve_step) on the same prompts."""
+    from repro_torch.launch import serve
+
+    prompt_len = WHISPER_PROMPT if arch_id == "whisper-medium" else args["--prompt-len"]
+    if impl is None and forced is None and arch_id not in ("whisper-medium",
+                                                           "phi-3-vision-4.2b"):
+        return serve.main(["--arch", arch_id, *SERVE_ARGV]), prompt_len
+    arch, cfg, model = serve.build(arch_id, seed=0)
+    prompts = serve.make_prompts(cfg, args["--batch"], prompt_len, 0)
+    out = serve.run(arch, cfg, model, prompts, args["--gen"], impl=impl, forced=forced,
+                    **_full_extras(np, arch_id, cfg, args["--batch"]))
+    return out, prompt_len
+
+
 def phase_serve_full(torch, np, smi: str = ""):
-    """Full width through launch.serve.main (the kernel arms, counted from
-    0), then the plain arms on the same weights, teacher-forced. One model
-    is on the card at a time. Returns the launches over the kernel arms and
+    """Full width (the kernel arms, counted from 0: launch.serve.main, or
+    serve.run with whisper's frames or phi-3-vision's patches), then the
+    plain arms on the same weights, teacher-forced. One model is on the
+    card at a time. Returns the launches over the kernel arms and
     flash_attention's by (path, head dim)."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels import ops
-    from repro_torch.launch import serve
     from repro_torch.models import attention
 
     args = dict(zip(SERVE_ARGV[::2], (int(v) for v in SERVE_ARGV[1::2])))
-    gen, prompt_len = args["--gen"], args["--prompt-len"]
+    gen = args["--gen"]
     for arch_id in SERVE_FULL_ARCHS:
         # the first full-width call of an arch pays for cuBLAS's heuristics
         # and the allocator's pools; its times are printed, not kept
-        cold = serve.main(["--arch", arch_id, *SERVE_ARGV])
+        cold, _ = _serve_full_run(np, arch_id, args)
         print(f"[serve] {arch_id} warm-up run: prefill {cold.prefill_s * 1e3:.1f} ms, "
               f"decode {cold.decode_s * 1e3:.1f} ms", flush=True)
         del cold
@@ -1982,32 +2126,34 @@ def phase_serve_full(torch, np, smi: str = ""):
     try:
         for arch_id in SERVE_FULL_ARCHS:
             cfg = get_arch(arch_id).full
-            name = _kernel_of(arch_id)
             before, paths_before = dict(ops.LAUNCHES), dict(by_path)
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
-            runs[arch_id] = run = serve.main(["--arch", arch_id, *SERVE_ARGV])
+            run, prompt_len = _serve_full_run(np, arch_id, args)
+            runs[arch_id] = run
             wall = time.perf_counter() - t0
             peak = torch.cuda.max_memory_allocated() / 2**30
             _free(torch)
-            launched = ops.LAUNCHES[name] - before[name]
+            expect_n = _serve_launches(cfg, gen)
+            launched = {name: ops.LAUNCHES[name] - before[name] for name in want}
+            for name in want:
+                want[name] += expect_n[name]
+                if launched[name] != expect_n[name]:
+                    raise AssertionError(f"{arch_id}: {name} launched {launched[name]} times, "
+                                         f"not {expect_n[name]}")
             paths = {f"{p} d{d}": n - paths_before.get((p, d), 0)
                      for (p, d), n in sorted(by_path.items())
                      if n - paths_before.get((p, d), 0)}
-            n = cfg.n_layers * (1 if name == "ssd_chunks" else gen)
-            want[name] += n
-            if launched != n:
-                raise AssertionError(f"{arch_id}: {name} launched {launched} times, not {n}")
-            note = ""
-            if name == "flash_attention":
-                d = cfg.attn.d_head
-                expect = {f"mma_tile d{d}": cfg.n_layers, f"mma_decode d{d}":
-                          cfg.n_layers * (gen - 1)}
+            note = f", launches {json.dumps(launched)}"
+            if expect_n["flash_attention"]:
+                d = cfg.d_head if hasattr(cfg, "d_head") else cfg.attn.d_head
+                expect = {f"mma_tile d{d}": expect_n["flash_prefill"],
+                          f"mma_decode d{d}": expect_n["flash_step"] * (gen - 1)}
                 if paths != expect:
                     raise AssertionError(f"{arch_id}: flash_attention launches by path "
                                          f"{paths}, not {expect}")
-                note = f", flash_attention launches by path and head dim {json.dumps(paths)}"
-                if cfg.local_window:
+                note += f", flash_attention launches by path and head dim {json.dumps(paths)}"
+                if getattr(cfg, "local_window", None):
                     ring = attention.cache_len(cfg.local_attn(), prompt_len + gen + 8)
                     if not ring == cfg.local_window <= prompt_len:
                         raise AssertionError(f"{arch_id}: the local ring of {ring} slots "
@@ -2015,12 +2161,16 @@ def phase_serve_full(torch, np, smi: str = ""):
                     note += (f"; the {cfg.kinds().count('local')} local layers' ring of {ring}"
                              f" slots is full after the {prompt_len}-token prompt, so decode "
                              f"step 1 writes slot {prompt_len % ring} over position 0")
+            shape = f"{args['--batch']}x{prompt_len} tokens"
+            if arch_id == "whisper-medium":
+                shape += f" over {WHISPER_FRAMES} encoder frames"
+            elif getattr(cfg, "vision", None) is not None:
+                shape = f"{args['--batch']}x({cfg.vision.n_patches} patches + {prompt_len} tokens)"
             tps = gen * args["--batch"] / run.decode_s
             print(f"[serve] {arch_id} kernel arm: prefill {run.prefill_s * 1e3:.1f} ms for "
-                  f"{args['--batch']}x{prompt_len} tokens, decode {tps:.1f} tok/s "
-                  f"({gen} steps in {run.decode_s * 1e3:.1f} ms); serve.main {wall:.3f} s "
-                  f"(weights included), peak memory {peak:.2f} GiB{note}"
-                  + (f"; {smi}" if smi else ""), flush=True)
+                  f"{shape}, decode {tps:.1f} tok/s ({gen} steps in "
+                  f"{run.decode_s * 1e3:.1f} ms); run {wall:.3f} s (weights included), peak "
+                  f"memory {peak:.2f} GiB{note}" + (f"; {smi}" if smi else ""), flush=True)
     finally:
         restore()
     launches = dict(ops.LAUNCHES)
@@ -2031,12 +2181,8 @@ def phase_serve_full(torch, np, smi: str = ""):
 
     for arch_id in SERVE_FULL_ARCHS:
         kernel_run = runs.pop(arch_id)
-        arch, cfg, model = serve.build(arch_id, seed=0)
-        prompts = serve.make_prompts(cfg, args["--batch"], prompt_len, 0)
         before = dict(ops.LAUNCHES)
-        plain = serve.run(arch, cfg, model, prompts, gen, impl="ref",
-                          forced=kernel_run.tokens)
-        del model
+        plain, _ = _serve_full_run(np, arch_id, args, impl="ref", forced=kernel_run.tokens)
         _free(torch)
         if dict(ops.LAUNCHES) != before:
             raise AssertionError(f"{arch_id}: the plain arm launched a kernel")
@@ -2049,8 +2195,8 @@ def phase_serve_full(torch, np, smi: str = ""):
         print(f"[serve] {arch_id} plain arm (teacher-forced): prefill {plain.prefill_s * 1e3:.1f}"
               f" ms, decode {plain.decode_s * 1e3:.1f} ms; kernel vs plain logits max |err| "
               f"prefill {errs[0]:.4g}, steps {max(errs[1:]):.4g}, max |logit| {scale:.4g} "
-              f"(tolerance {SERVE_FULL_REL} x that); greedy picks equal in "
-              f"{agree * 100:.1f}% of positions", flush=True)
+              f"(tolerance {SERVE_FULL_REL} x that, read {max(errs) / scale:.4f}); greedy "
+              f"picks equal in {agree * 100:.1f}% of positions", flush=True)
         if not finite:
             raise AssertionError(f"{arch_id}: non-finite logits")
         if max(errs) > SERVE_FULL_REL * scale:
@@ -2142,8 +2288,9 @@ def phase_train_golden(torch, np):
                                          or median > COMPRESSED_MEDIAN_ATOL):
                 raise AssertionError(f"{arch_id} compressed: parameters differ ({worst}, "
                                      f"{close:.3f} within 1e-5, median {median:.3g})")
-            if not launched.get(_kernel_of(arch_id)):
-                raise AssertionError(f"{arch_id} {kind}: the model's kernel never launched")
+            for name in ("flash_attention", "ssd_chunks"):
+                if _serve_launches(cfg, 1)[name] and not launched.get(name):
+                    raise AssertionError(f"{arch_id} {kind}: {name} never launched")
             if kind == "compressed" and not launched.get("int8_quantize"):
                 raise AssertionError(f"{arch_id}: the codec never launched")
 
@@ -2564,7 +2711,8 @@ def main() -> int:
         entry.update({key: val for key, val in r.items()
                       if key.startswith(("decode_", "train_", "lse_", "fp32_", "d256_",
                                          "mqa_", "d64_", "pairs_", "table1_", "fleet_",
-                                         "service_", "mixed_", "serve_"))})
+                                         "service_", "mixed_", "serve_", "whisper_",
+                                         "phi3v_", "zamba2_"))})
         if name in ("flash_attention", "ssd_chunks"):
             entry["train_launches"] = train_launches[name]
         line.append(entry)

@@ -1,7 +1,6 @@
-"""Architecture registry of the port: the archs whose blocks are ported.
+"""Architecture registry of the port: every arch of the reference.
 
-``get_arch(id)`` returns the ArchDef; an assigned arch that is not ported
-yet raises and names its ROADMAP item.
+``get_arch(id)`` returns the ArchDef; an unknown id raises ``KeyError``.
 """
 
 from repro_torch.configs import (
@@ -9,9 +8,12 @@ from repro_torch.configs import (
     granite_20b,
     granite_moe_1b_a400m,
     mamba2_130m,
+    phi3_vision_42b,
     phi35_moe_42b_a66b,
     qwen15_110b,
     starcoder2_3b,
+    whisper_medium,
+    zamba2_7b,
 )
 from repro_torch.configs.base import ArchDef
 
@@ -25,21 +27,17 @@ ARCHS = {
         starcoder2_3b,
         gemma3_12b,
         mamba2_130m,
+        zamba2_7b,
+        phi3_vision_42b,
+        whisper_medium,
     )
 }
 
-# the reference's other assigned archs, and what they wait for
-NOT_PORTED = {
-    "zamba2-7b": "ROADMAP A8c (the shared-attention path)",
-    "phi-3-vision-4.2b": "ROADMAP A8d (the vision path)",
-    "whisper-medium": "ROADMAP A8e (models/encdec.py)",
-}
+# the reference's archs that the port does not carry yet (none left)
+NOT_PORTED: dict = {}
 
 
 def get_arch(arch_id: str) -> ArchDef:
     if arch_id in ARCHS:
         return ARCHS[arch_id]
-    if arch_id in NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {arch_id!r} is not ported yet: {NOT_PORTED[arch_id]}")
     raise KeyError(f"unknown arch {arch_id!r}; ported: {sorted(ARCHS)}")

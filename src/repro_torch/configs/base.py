@@ -2,9 +2,10 @@
 shape cells and the ``ArchDef`` adapter over the model entry points.
 
 Every architecture module exports an ``ArchDef`` with a FULL config (the
-published spec) and a SMOKE config (same family, tiny dims). The port
-carries the decoder-only LM entry points; the encoder-decoder family waits
-(ROADMAP A8e).
+published spec) and a SMOKE config (same family, tiny dims). ``ArchDef``
+routes each entry point to ``models/lm.py`` for an ``LMConfig`` and to
+``models/encdec.py`` for an ``EncDecConfig`` (whisper), whose batches carry
+``frames``.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from repro_torch.models import lm
+from repro_torch.models import encdec, lm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,37 +36,52 @@ SHAPES: Dict[str, ShapeCell] = {
 
 @dataclasses.dataclass
 class ArchDef:
-    """Uniform adapter over the LM entry points."""
+    """Uniform adapter over the LM and encoder-decoder entry points."""
 
     arch_id: str
     family: str  # moe | dense | vlm | hybrid | audio | ssm
-    full: Any  # LMConfig
+    full: Any  # LMConfig | EncDecConfig
     smoke: Any
     long_500k_ok: bool
     notes: str = ""
 
-    def init(self, generator: torch.Generator, cfg=None, *, device=None) -> lm.LM:
+    def is_encdec(self) -> bool:
+        return isinstance(self.full, encdec.EncDecConfig)
+
+    def _family(self):
+        return encdec if self.is_encdec() else lm
+
+    def init(self, generator: Optional[torch.Generator], cfg=None, *, device=None):
         """Random weights drawn from ``generator`` on ``device`` (the
-        generator's device when None)."""
+        generator's device when None); on the meta device, shapes only."""
         cfg = cfg or self.full
-        return lm.init(cfg, generator=generator,
-                       device=generator.device if device is None else device)
+        return self._family().init(cfg, generator=generator,
+                                   device=generator.device if device is None else device)
 
     def forward(self, cfg, model, batch, *, impl: Optional[str] = None):
+        if self.is_encdec():
+            return encdec.forward(cfg, model, batch["frames"], batch["tokens"], impl=impl)
         logits, _ = lm.forward(cfg, model, batch["tokens"], batch.get("images"),
                                impl=impl)
         return logits
 
     def loss_fn(self, cfg, model, batch, *, impl: Optional[str] = None):
-        return lm.loss_fn(cfg, model, batch, impl=impl)
+        return self._family().loss_fn(cfg, model, batch, impl=impl)
 
     def prefill(self, cfg, model, batch, *, max_cache_len: int,
                 impl: Optional[str] = None):
+        if self.is_encdec():
+            return encdec.prefill(cfg, model, batch["frames"], batch["tokens"],
+                                  max_cache_len=max_cache_len, impl=impl)
         return lm.prefill(cfg, model, batch["tokens"], max_cache_len=max_cache_len,
                           images=batch.get("images"), impl=impl)
 
-    def init_caches(self, cfg, batch: int, max_len: int, *, device):
+    def init_caches(self, cfg, batch: int, max_len: int, *, device, enc_len: int = 0):
+        """Zero decode caches; an encoder-decoder's cross caches hold
+        ``enc_len`` frames (``max_len`` when 0, as the reference)."""
+        if self.is_encdec():
+            return encdec.init_caches(cfg, batch, max_len, enc_len or max_len, device)
         return lm.init_caches(cfg, batch, max_len, device)
 
     def decode_step(self, cfg, model, caches, token, *, impl: Optional[str] = None):
-        return lm.decode_step(cfg, model, caches, token, impl=impl)
+        return self._family().decode_step(cfg, model, caches, token, impl=impl)

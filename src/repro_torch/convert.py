@@ -18,7 +18,7 @@ import torch
 from repro_torch.core.power import PowerModel
 from repro_torch.core.svr import SVRParams
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models import lm
+from repro_torch.models import encdec, lm
 
 
 def power_model_from_reference(coeffs: Sequence[float]) -> PowerModel:
@@ -79,11 +79,11 @@ def unflatten_reference(flat: Mapping[str, Any]) -> dict:
 
 
 def seeded_reference_params(shapes: Mapping[str, Sequence[int]], seed: int) -> dict:
-    """Float32 weights of a reference LM pytree, given its leaves' shapes by
-    dotted path, drawn from ``numpy.random.default_rng(seed)`` in sorted
-    path order: a norm's ``scale`` 1 + N(0, 0.1^2), every other leaf
-    N(0, 0.02^2). Weights a golden names by their seed instead of holding
-    them."""
+    """Float32 weights of a reference LM or encoder-decoder pytree, given
+    its leaves' shapes by dotted path, drawn from
+    ``numpy.random.default_rng(seed)`` in sorted path order: a norm's
+    ``scale`` 1 + N(0, 0.1^2), every other leaf N(0, 0.02^2). Weights a
+    golden names by their seed instead of holding them."""
     rng = np.random.default_rng(seed)
     flat = {}
     for path in sorted(shapes):
@@ -120,7 +120,8 @@ def lm_params_from_reference(params: Mapping[str, Any], cfg: lm.LMConfig,
     ``params["blocks"][i]`` holds pattern position i's weights stacked over
     ``n_groups``; group g's slice becomes layer ``g * len(pattern) + i``.
     The names below a block are the reference's keys, so every leaf lands
-    on the parameter of the same path.
+    on the parameter of the same path; zamba2's one ``shared`` block and a
+    VLM's ``vision_proj`` land on ``LM.shared`` and ``LM.vision_proj``.
     """
     dev = resolve_device(device)
     model = lm.init(cfg, generator=torch.Generator(device=dev), device=dev)
@@ -136,3 +137,30 @@ def lm_params_from_reference(params: Mapping[str, Any], cfg: lm.LMConfig,
             for g in range(cfg.n_groups):
                 values[f"blocks.{g * n_pat + i}.{path}"] = arr[g]
     return load_reference_params(model, values)
+
+
+def encdec_params_from_reference(params: Mapping[str, Any], cfg: encdec.EncDecConfig,
+                                 device: DeviceLike = None) -> encdec.EncDec:
+    """A reference ``encdec.init`` pytree (its leaves as numpy arrays) as
+    the port's ``encdec.EncDec`` on ``device``: ``enc_blocks`` and
+    ``dec_blocks`` hold each leaf stacked over layers, and layer l's slice
+    becomes ``enc_blocks.<l>`` / ``dec_blocks.<l>``."""
+    dev = resolve_device(device)
+    model = encdec.init(cfg, generator=torch.Generator(device=dev), device=dev)
+    stacks = {"enc_blocks": cfg.n_enc_layers, "dec_blocks": cfg.n_dec_layers}
+    values = flatten_reference({k: v for k, v in params.items() if k not in stacks})
+    for key, n in stacks.items():
+        for path, arr in flatten_reference(params[key]).items():
+            if arr.shape[0] != n:
+                raise ValueError(f"{key}.{path}: leading axis {arr.shape[0]} != {n} layers")
+            for layer in range(n):
+                values[f"{key}.{layer}.{path}"] = arr[layer]
+    return load_reference_params(model, values)
+
+
+def params_from_reference(params: Mapping[str, Any], cfg, device: DeviceLike = None):
+    """``encdec_params_from_reference`` for an ``EncDecConfig``, else
+    ``lm_params_from_reference``."""
+    if isinstance(cfg, encdec.EncDecConfig):
+        return encdec_params_from_reference(params, cfg, device)
+    return lm_params_from_reference(params, cfg, device)

@@ -490,19 +490,15 @@ _ANALYTIC_TERMS_CACHE: Dict[Tuple[str, Hashable], RooflineTerms] = {}
 
 def _count_params(arch_id: str) -> float:
     """The arch's FULL parameter count, from its modules built on the meta
-    device (nothing is allocated); 1e8 for an id the zoo does not know, as
-    the reference. An assigned arch that is not ported raises and names its
-    ROADMAP item, so that no roofline is computed from a stand-in count."""
-    from repro_torch.configs import ARCHS, NOT_PORTED  # lazy: keeps the node-only path light
-    from repro_torch.models import common, lm
+    device (nothing is allocated; ``encdec.init`` for an encoder-decoder);
+    1e8 for an id the zoo does not know, as the reference."""
+    from repro_torch.configs import ARCHS  # lazy: keeps the node-only path light
+    from repro_torch.models import common
 
     arch = ARCHS.get(arch_id)
     if arch is None:
-        if arch_id in NOT_PORTED:
-            raise NotImplementedError(
-                f"terms_analytic({arch_id!r}): arch not ported yet, {NOT_PORTED[arch_id]}")
         return 1e8
-    return common.count_params(lm.init(arch.full, generator=None, device="meta"))
+    return common.count_params(arch.init(None, arch.full, device="meta"))
 
 
 def terms_analytic(arch_id: str, cell) -> RooflineTerms:

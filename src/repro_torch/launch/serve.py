@@ -6,12 +6,12 @@ reference's ``launch/serve.py``.
     python -m repro_torch.launch.serve --arch mamba2-130m --smoke --device cpu
 
 Weights are random, drawn from ``torch.Generator(device).manual_seed(seed)``
-on the device; prompts come from ``numpy.random.default_rng(seed)`` as in
-the reference. It prints the prefill time (ms) and the decode rate
-(tokens/s), with the host clock around work that ends in a device
-synchronisation. The queue counter is the reference's micro
-continuous-batching stand-in: a slot "finishes" on a fixed schedule and a
-queued prompt is counted as swapped in.
+on the device; prompts (and whisper's encoder frames after them) come from
+``numpy.random.default_rng(seed)`` as in the reference. It prints the
+prefill time (ms) and the decode rate (tokens/s), with the host clock
+around work that ends in a device synchronisation. The queue counter is
+the reference's micro continuous-batching stand-in: a slot "finishes" on
+a fixed schedule and a queued prompt is counted as swapped in.
 """
 
 from __future__ import annotations
@@ -47,13 +47,28 @@ def build(name: str, *, smoke: bool = False, seed: int = 0, device: DeviceLike =
     return arch, cfg, arch.init(gen, cfg, device=dev)
 
 
-def make_prompts(cfg, batch: int, prompt_len: int, seed: int) -> np.ndarray:
-    """(batch, prompt_len) token ids, one prompt at a time from the seed's
-    numpy generator, as the reference draws them."""
-    rng = np.random.default_rng(seed)
+def _draw_prompts(rng: np.random.Generator, cfg, batch: int, prompt_len: int) -> np.ndarray:
     return np.concatenate(
         [rng.integers(0, cfg.vocab, (1, prompt_len)).astype(np.int32)
          for _ in range(batch)], 0)
+
+
+def make_prompts(cfg, batch: int, prompt_len: int, seed: int) -> np.ndarray:
+    """(batch, prompt_len) token ids, one prompt at a time from the seed's
+    numpy generator, as the reference draws them."""
+    return _draw_prompts(np.random.default_rng(seed), cfg, batch, prompt_len)
+
+
+def make_inputs(arch, cfg, batch: int, prompt_len: int, seed: int):
+    """(prompts, frames): the prompts of ``make_prompts`` and, for an
+    encoder-decoder, the encoder's frames (batch, prompt_len, d_model)
+    float64, N(0, 1), drawn from the same generator after the prompts, in
+    the reference ``main``'s order; frames is None for an LM."""
+    rng = np.random.default_rng(seed)
+    prompts = _draw_prompts(rng, cfg, batch, prompt_len)
+    if not arch.is_encdec():
+        return prompts, None
+    return prompts, rng.normal(0, 1, (batch, prompt_len, cfg.d_model))
 
 
 def _sync(dev: torch.device) -> None:
@@ -75,16 +90,26 @@ class ServeRun:
 
 
 def run(arch, cfg, model, prompts: np.ndarray, gen: int, *, queue: int = 4,
-        impl: Optional[str] = None, forced: Optional[torch.Tensor] = None) -> ServeRun:
+        impl: Optional[str] = None, forced: Optional[torch.Tensor] = None,
+        frames=None, images=None) -> ServeRun:
     """Prefill ``prompts`` and decode ``gen`` tokens greedily.
 
+    ``frames`` (b, n_frames, d_model): an encoder-decoder's encoder input;
+    ``images`` (b, n_patches, d_vision): a VLM's patch embeddings, prepended
+    to the prompts (the caches then hold n_patches more slots). Both are
+    cast to ``cfg.dtype`` on the model's device.
     ``forced`` (b, gen): decode step i is fed ``forced[:, i]`` instead of
     the greedy token of the step before (teacher forcing; pass another
     run's ``tokens`` to compare two runs step by step). ``tokens`` still
     returns this run's greedy picks."""
-    dev = model.embed.table.device
+    dev = next(model.parameters()).device
     batch = {"tokens": torch.as_tensor(prompts, dtype=torch.long, device=dev)}
     max_len = prompts.shape[1] + gen + 8
+    for key, extra in (("frames", frames), ("images", images)):
+        if extra is not None:
+            batch[key] = torch.as_tensor(np.asarray(extra), device=dev).to(cfg.dtype)
+    if images is not None:
+        max_len += batch["images"].shape[1]
     prefill = steps_mod.make_prefill(arch, cfg, max_cache_len=max_len, impl=impl)
     serve_step = steps_mod.make_serve_step(arch, cfg, impl=impl)
     with torch.inference_mode():
@@ -127,10 +152,10 @@ def main(argv=None) -> ServeRun:
 
     arch, cfg, model = build(args.arch, smoke=args.smoke, seed=args.seed,
                              device=args.device)
-    prompts = make_prompts(cfg, args.batch, args.prompt_len, args.seed)
-    out = run(arch, cfg, model, prompts, args.gen, queue=args.queue)
+    prompts, frames = make_inputs(arch, cfg, args.batch, args.prompt_len, args.seed)
+    out = run(arch, cfg, model, prompts, args.gen, queue=args.queue, frames=frames)
     tps = (args.gen * args.batch) / max(out.decode_s, 1e-9)
-    dev = model.embed.table.device
+    dev = next(model.parameters()).device
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     obs.log(f"arch={cfg.name} batch={args.batch} device={where}")
     obs.log(f"prefill: {out.prefill_s * 1e3:.1f} ms for {args.batch}x{args.prompt_len} "

@@ -15,8 +15,9 @@ the run's shape (``core/planner.py``), from the arch's dry-run artifact
 where one exists, else the analytic roofline (``engine.terms_analytic``).
 Weights are random, from a seeded ``torch.Generator`` on the device; the
 model, its AdamW state and the error-feedback residuals are updated in
-place. Of the reference's archs, zamba2-7b, phi-3-vision-4.2b and
-whisper-medium are not ported yet (ROADMAP A8c-A8e).
+place. An encoder-decoder's batches carry ``--seq`` encoder frames and
+min(seq, max_target_len) decoder tokens; a VLM's carry its image patches,
+as the reference's pipeline draws them.
 """
 
 from __future__ import annotations
@@ -87,8 +88,16 @@ def main(argv=None):
     arch, cfg = resolve_arch(args.arch, args.smoke)
     opt_cfg = adamw.AdamWConfig(
         peak_lr=args.lr, warmup_steps=args.warmup, total_steps=max(args.steps, 1))
-    pipeline = SyntheticPipeline(PipelineConfig(
-        vocab=cfg.vocab, seq=args.seq, global_batch=args.batch, seed=args.seed))
+    pcfg = PipelineConfig(vocab=cfg.vocab, seq=args.seq, global_batch=args.batch,
+                          seed=args.seed)
+    if arch.is_encdec():
+        pcfg = PipelineConfig(vocab=cfg.vocab, seq=min(args.seq, cfg.max_target_len),
+                              global_batch=args.batch, seed=args.seed, n_frames=args.seq,
+                              d_frame=cfg.d_model)
+    if getattr(cfg, "vision", None) is not None:
+        pcfg.n_patches = cfg.vision.n_patches
+        pcfg.d_vision = cfg.vision.d_vision
+    pipeline = SyntheticPipeline(pcfg)
 
     if args.auto_energy:
         from repro_torch.configs.base import ShapeCell

@@ -4,20 +4,27 @@
     "attn"   -- global attention + dense FFN   (starcoder2, granite-20b, qwen1.5)
     "local"  -- sliding-window attention + FFN (gemma3's local layers; ring KV cache)
     "moe"    -- global attention + top-k MoE   (granite-moe, phi3.5-moe)
-    "mamba"  -- Mamba2 SSD block               (mamba2)
+    "mamba"  -- Mamba2 SSD block               (mamba2, zamba2's backbone)
 
-``shared_attn`` (zamba2, ROADMAP A8c) and ``vision`` (phi-3-vision, A8d)
-raise ``NotImplementedError``.
+With ``shared_attn`` (zamba2) ONE attention + MLP block, ``LM.shared``, is
+invoked once per group, before that group's pattern, on concat(h, h0):
+``h0`` is the embedded input (the whole prompt in ``forward`` and
+``prefill``, the current token in ``decode_step``). Its weights are one
+copy, so its gradient sums over the ``n_groups`` calls. With ``vision``
+(phi-3-vision) ``images``, precomputed patch embeddings (b, n_patches,
+d_vision), go through ``LM.vision_proj`` and are prepended to the tokens.
 
 Where the reference stacks each pattern position's weights over
 ``n_groups`` and runs ``lax.scan``, the port keeps one module per layer in
 an ``nn.ModuleList``: layer ``g * len(pattern) + i`` is group g's block of
-pattern position i. Caches are a list with one dict per layer. Entry
-points:
+pattern position i. Caches are a list: ``caches[layer]`` is that layer's
+dict, for every arch; with ``shared_attn`` the ``n_groups`` shared-attention
+KV caches follow, ``caches[n_layers + g]`` group g's. Entry points:
 
-    forward(cfg, model, tokens)                    -> (logits, aux)
+    forward(cfg, model, tokens, images=None)       -> (logits, aux)
     loss_fn(cfg, model, batch)                     -> (loss, {ce, lb, z})
-    prefill(cfg, model, tokens, max_cache_len=L)   -> (caches, last logits)
+    prefill(cfg, model, tokens, max_cache_len=L, images=None)
+                                                   -> (caches, last logits)
     decode_step(cfg, model, caches, token)         -> (caches, logits)
 """
 
@@ -36,8 +43,6 @@ from repro_torch.models.mamba2 import Mamba2Config
 from repro_torch.models.moe import MoEConfig
 
 PORTED_KINDS = ("attn", "local", "moe", "mamba")
-NOT_PORTED = {"shared_attn": "not ported yet (ROADMAP A8c: the zamba2 shared-attention path)",
-              "vision": "not ported yet (ROADMAP A8d: the phi-3-vision path)"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,14 +90,10 @@ class LMConfig:
         return [k for _ in range(self.n_groups) for k in self.pattern]
 
 
-def _check_ported(cfg: LMConfig) -> None:
+def _check_kinds(cfg: LMConfig) -> None:
     bad = [k for k in cfg.pattern if k not in PORTED_KINDS]
     if bad:
         raise ValueError(f"block kind {bad[0]!r}")
-    if cfg.shared_attn:
-        raise NotImplementedError(f"shared_attn: {NOT_PORTED['shared_attn']}")
-    if cfg.vision is not None:
-        raise NotImplementedError(f"vision: {NOT_PORTED['vision']}")
 
 
 def _attn_cfg(cfg: LMConfig, kind: str) -> AttnConfig:
@@ -127,21 +128,39 @@ class MambaBlock(nn.Module):
                                  device=device)
 
 
+class Shared(nn.Module):
+    """zamba2's shared block: in_proj (2d -> d) of concat(h, h0), then
+    ln1 -> attention -> residual, ln2 -> MLP -> residual."""
+
+    def __init__(self, cfg: LMConfig, *, generator: torch.Generator, device):
+        super().__init__()
+        d, dt = cfg.d_model, cfg.dtype
+        kw = dict(dtype=dt, generator=generator, device=device)
+        self.in_proj = common.Linear(2 * d, d, bias=False, **kw)
+        self.ln1 = common.Norm(d, kind=cfg.norm, dtype=dt, device=device)
+        self.attn = attention.init(cfg.attn, dt, generator=generator, device=device)
+        self.ln2 = common.Norm(d, kind=cfg.norm, dtype=dt, device=device)
+        self.mlp = common.MLP(d, cfg.d_ff, gated=cfg.mlp_gated, bias=False, act=cfg.act,
+                              **kw)
+
+
 class LM(nn.Module):
     def __init__(self, cfg: LMConfig, *, generator: torch.Generator, device):
         super().__init__()
-        _check_ported(cfg)
-        self.embed = common.Embed(cfg.vocab, cfg.d_model, dtype=cfg.dtype,
-                                  generator=generator, device=device)
+        _check_kinds(cfg)
+        kw = dict(dtype=cfg.dtype, generator=generator, device=device)
+        self.embed = common.Embed(cfg.vocab, cfg.d_model, **kw)
         self.blocks = nn.ModuleList(
             MambaBlock(cfg, generator=generator, device=device) if kind == "mamba"
             else AttnBlock(cfg, kind, generator=generator, device=device)
             for kind in cfg.kinds())
+        self.shared = Shared(cfg, generator=generator, device=device) if cfg.shared_attn else None
         self.final_norm = common.Norm(cfg.d_model, kind=cfg.norm, dtype=cfg.dtype,
                                       device=device)
-        self.lm_head = (None if cfg.tie_embeddings else common.Linear(
-            cfg.d_model, cfg.vocab, bias=False, dtype=cfg.dtype, generator=generator,
-            device=device))
+        self.lm_head = (None if cfg.tie_embeddings else
+                        common.Linear(cfg.d_model, cfg.vocab, bias=False, **kw))
+        self.vision_proj = (None if cfg.vision is None else
+                            common.Linear(cfg.vision.d_vision, cfg.d_model, bias=False, **kw))
 
 
 def init(cfg: LMConfig, *, generator: torch.Generator, device) -> LM:
@@ -189,10 +208,38 @@ def _block_decode(blk, cfg: LMConfig, kind: str, h, cache, *, impl):
     return h + _ffn(blk, cfg, kind, blk.ln2(h))[0], cache
 
 
-def _embed_inputs(cfg: LMConfig, model: LM, tokens: torch.Tensor) -> torch.Tensor:
+def _shared_forward(p: Shared, cfg: LMConfig, h, h0, positions, *, impl):
+    """The shared block on concat(h, h0): its contribution, which the
+    caller adds to the trunk (the reference's ``_shared_forward``)."""
+    x = p.in_proj(torch.cat([h, h0], dim=-1))
+    x = x + attention.forward(p.attn, cfg.attn, p.ln1(x), positions=positions, impl=impl)
+    return x + p.mlp(p.ln2(x))
+
+
+def _shared_prefill(p: Shared, cfg: LMConfig, h, h0, positions, max_len, *, impl):
+    x = p.in_proj(torch.cat([h, h0], dim=-1))
+    a, cache = attention.forward(p.attn, cfg.attn, p.ln1(x), positions=positions,
+                                 return_cache=True, max_cache_len=max_len, impl=impl)
+    x = x + a
+    return x + p.mlp(p.ln2(x)), cache
+
+
+def _shared_decode(p: Shared, cfg: LMConfig, h, h0, cache, *, impl):
+    x = p.in_proj(torch.cat([h, h0], dim=-1))
+    a, cache = attention.decode_step(p.attn, cfg.attn, p.ln1(x), cache, impl=impl)
+    x = x + a
+    return x + p.mlp(p.ln2(x)), cache
+
+
+def _embed_inputs(cfg: LMConfig, model: LM, tokens: torch.Tensor,
+                  images: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token embeddings, with a VLM's projected image patches prepended."""
     h = model.embed(tokens)
     if cfg.scale_embeddings:
         h = h * torch.tensor(cfg.d_model**0.5, dtype=h.dtype, device=h.device)
+    if cfg.vision is not None and images is not None:
+        img = model.vision_proj(images.to(cfg.dtype))
+        h = torch.cat([img, h], dim=1)
     return h
 
 
@@ -203,29 +250,40 @@ def _logits(cfg: LMConfig, model: LM, h: torch.Tensor) -> torch.Tensor:
     return common.linear_f32out(model.lm_head, h)
 
 
+def _starts_group(cfg: LMConfig, layer: int) -> bool:
+    """Whether the shared block runs before ``layer`` (the first of a group)."""
+    return cfg.shared_attn and layer % len(cfg.pattern) == 0
+
+
 def forward(cfg: LMConfig, model: LM, tokens: torch.Tensor, images=None, *,
             impl: Optional[str] = None):
-    """tokens (b, s) -> (logits (b, s, vocab) f32, aux losses {lb, z}).
+    """tokens (b, s) [, images (b, n_patches, d_vision)] -> (logits (b,
+    s_total, vocab) f32, aux losses {lb, z}); s_total counts the patches.
 
-    With ``cfg.remat`` and grad mode on, every layer is recomputed in the
-    backward (``torch.utils.checkpoint``, non-reentrant): only each layer's
-    input is kept, as the reference's per-group ``jax.checkpoint``. The
-    reference's ``scan_nest`` (a second level of recomputation that keeps
-    fewer of those inputs) changes memory only; the port keeps one input a
-    layer for every config.
+    With ``cfg.remat`` and grad mode on, every layer (and every call of
+    the shared block) is recomputed in the backward
+    (``torch.utils.checkpoint``, non-reentrant): only each one's input is
+    kept, as the reference's per-group ``jax.checkpoint``. The reference's
+    ``scan_nest`` (a second level of recomputation that keeps fewer of
+    those inputs) changes memory only; the port keeps one input a layer
+    for every config.
     """
-    if images is not None:
-        raise NotImplementedError(f"images: {NOT_PORTED['vision']}")
-    h = _embed_inputs(cfg, model, tokens)
+    h = _embed_inputs(cfg, model, tokens, images)
+    h0 = h
     positions = torch.arange(h.shape[1], device=h.device)
     remat = cfg.remat and torch.is_grad_enabled()
-    lb = z = torch.zeros((), dtype=torch.float32, device=h.device)
-    for blk, kind in zip(model.blocks, cfg.kinds()):
+
+    def call(fn, *args):
         if remat:
-            h, moe_aux = checkpoint(_block_forward, blk, cfg, kind, h, positions, impl=impl,
-                                    use_reentrant=False, preserve_rng_state=False)
-        else:
-            h, moe_aux = _block_forward(blk, cfg, kind, h, positions, impl=impl)
+            return checkpoint(fn, *args, impl=impl, use_reentrant=False,
+                              preserve_rng_state=False)
+        return fn(*args, impl=impl)
+
+    lb = z = torch.zeros((), dtype=torch.float32, device=h.device)
+    for layer, (blk, kind) in enumerate(zip(model.blocks, cfg.kinds())):
+        if _starts_group(cfg, layer):
+            h = h + call(_shared_forward, model.shared, cfg, h, h0, positions)
+        h, moe_aux = call(_block_forward, blk, cfg, kind, h, positions)
         if moe_aux is not None:  # summed in layer order, as the reference's scan carry
             lb = lb + moe_aux["load_balance_loss"]
             z = z + moe_aux["router_z_loss"]
@@ -233,47 +291,84 @@ def forward(cfg: LMConfig, model: LM, tokens: torch.Tensor, images=None, *,
 
 
 def loss_fn(cfg: LMConfig, model: LM, batch, *, impl: Optional[str] = None):
-    """batch {tokens (b, s), labels (b, s), [mask]} -> (loss, {ce, lb, z}),
-    the reference's ``loss_fn``: cross-entropy plus the MoE layers' summed
+    """batch {tokens (b, s), labels (b, s), [mask], [images]} -> (loss,
+    {ce, lb, z}), the reference's ``loss_fn``: cross-entropy (on the text
+    positions only when images are prepended) plus the MoE layers' summed
     load-balance and router z-losses, weighted by ``cfg.moe_aux_weight``
     and ``cfg.moe_z_weight`` (zero without MoE layers)."""
-    logits, aux = forward(cfg, model, batch["tokens"], batch.get("images"), impl=impl)
+    images = batch.get("images")
+    logits, aux = forward(cfg, model, batch["tokens"], images, impl=impl)
+    if cfg.vision is not None and images is not None:
+        logits = logits[:, -batch["tokens"].shape[1]:]
     loss = common.cross_entropy(logits, batch["labels"], batch.get("mask"))
     total = loss + cfg.moe_aux_weight * aux["lb"] + cfg.moe_z_weight * aux["z"]
     return total, {"ce": loss, **aux}
 
 
+def _has_global_attention(cfg: LMConfig) -> bool:
+    return cfg.shared_attn or any(kind != "mamba" and _attn_cfg(cfg, kind).window is None
+                                  for kind in cfg.pattern)
+
+
 def prefill(cfg: LMConfig, model: LM, tokens: torch.Tensor, *, max_cache_len: int,
             images=None, impl: Optional[str] = None):
-    """Build decode caches from a full prompt: (caches, logits of the last
-    position (b, 1, vocab) f32)."""
-    if images is not None:
-        raise NotImplementedError(f"images: {NOT_PORTED['vision']}")
-    h = _embed_inputs(cfg, model, tokens)
-    positions = torch.arange(h.shape[1], device=h.device)
-    caches = []
-    for blk, kind in zip(model.blocks, cfg.kinds()):
+    """Build decode caches from a full prompt (image patches first, for a
+    VLM given ``images``): (caches, logits of the last position (b, 1,
+    vocab) f32).
+
+    A global-attention cache must hold the whole sequence: a longer one
+    raises ``ValueError`` where it would otherwise become a ring, which
+    only a sliding-window layer can decode from (a VLM's sequence is
+    n_patches + prompt)."""
+    h = _embed_inputs(cfg, model, tokens, images)
+    s = h.shape[1]
+    if s > max_cache_len and _has_global_attention(cfg):
+        parts = (f" ({s - tokens.shape[1]} image patches + {tokens.shape[1]} tokens)"
+                 if s != tokens.shape[1] else "")
+        raise ValueError(f"{cfg.name}: prefill of {s} positions{parts} into a cache of "
+                         f"{max_cache_len} slots; a global-attention cache must hold the "
+                         f"whole sequence")
+    h0 = h
+    positions = torch.arange(s, device=h.device)
+    caches, shared = [], []
+    for layer, (blk, kind) in enumerate(zip(model.blocks, cfg.kinds())):
+        if _starts_group(cfg, layer):
+            y, cache = _shared_prefill(model.shared, cfg, h, h0, positions, max_cache_len,
+                                       impl=impl)
+            h = h + y
+            shared.append(cache)
         h, cache = _block_prefill(blk, cfg, kind, h, positions, max_cache_len, impl=impl)
         caches.append(cache)
-    return caches, _logits(cfg, model, h[:, -1:, :])
+    return caches + shared, _logits(cfg, model, h[:, -1:, :])
 
 
 def init_caches(cfg: LMConfig, batch: int, max_len: int, device) -> list:
-    """Zero caches for decode from scratch."""
-    _check_ported(cfg)
-    return [mamba2.make_state(cfg.mamba_cfg, batch, cfg.dtype, device) if kind == "mamba"
-            else attention.make_cache(_attn_cfg(cfg, kind), batch, max_len, cfg.dtype,
-                                      device)
-            for kind in cfg.kinds()]
+    """Zero caches for decode from scratch, in ``prefill``'s layout."""
+    _check_kinds(cfg)
+    layers = [mamba2.make_state(cfg.mamba_cfg, batch, cfg.dtype, device) if kind == "mamba"
+              else attention.make_cache(_attn_cfg(cfg, kind), batch, max_len, cfg.dtype,
+                                        device)
+              for kind in cfg.kinds()]
+    shared = [attention.make_cache(cfg.attn, batch, max_len, cfg.dtype, device)
+              for _ in range(cfg.n_groups if cfg.shared_attn else 0)]
+    return layers + shared
 
 
 def decode_step(cfg: LMConfig, model: LM, caches: list, token: torch.Tensor, *,
                 impl: Optional[str] = None):
     """token (b, 1) -> (new caches, logits (b, 1, vocab) f32). Attention
-    caches are updated in place (``attention.decode_step``)."""
+    caches (the shared block's too) are updated in place
+    (``attention.decode_step``)."""
     h = _embed_inputs(cfg, model, token)
-    new_caches = []
-    for blk, kind, cache in zip(model.blocks, cfg.kinds(), caches):
-        h, cache = _block_decode(blk, cfg, kind, h, cache, impl=impl)
-        new_caches.append(cache)
-    return new_caches, _logits(cfg, model, h)
+    h0 = h
+    n_layers = len(model.blocks)
+    layers, shared = [], []
+    for layer, (blk, kind) in enumerate(zip(model.blocks, cfg.kinds())):
+        if _starts_group(cfg, layer):
+            cache = caches[n_layers + layer // len(cfg.pattern)]
+            y, cache = _shared_decode(model.shared, cfg, h, h0, cache, impl=impl)
+            h = h + y
+            shared.append(cache)
+        h, cache = _block_decode(blk, cfg, kind, h, caches[layer], impl=impl)
+        layers.append(cache)
+    return layers + shared, _logits(cfg, model, h)

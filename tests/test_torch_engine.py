@@ -239,16 +239,16 @@ def test_solve_grid_semantics_are_the_references():
 
 
 def test_terms_analytic_waits_for_the_model_zoo():
-    """The reference's archs that are not ported raise and name their item
-    (no roofline from a stand-in count); the ported ones count their
-    parameters (``tests/test_torch_zoo.py`` holds them to the reference)."""
-    for arch_id, item in (("zamba2-7b", "A8c"), ("phi-3-vision-4.2b", "A8d"),
-                          ("whisper-medium", "A8e")):
-        with pytest.raises(NotImplementedError, match=item):
-            teng.terms_analytic(arch_id, object())
-    got = teng.terms_analytic("qwen1.5-110b", T_SHAPES["train_4k"])
-    assert dataclasses.astuple(got) == dataclasses.astuple(
-        jeng.terms_analytic("qwen1.5-110b", J_SHAPES["train_4k"]))
+    """The zoo is whole: zamba2-7b (its shared block counted once),
+    phi-3-vision-4.2b (with ``vision_proj``) and whisper-medium (counted
+    from ``encdec.init`` on the meta device) give the reference's terms at
+    every shape, as qwen1.5-110b does (``tests/test_torch_zoo.py`` holds
+    every arch to the reference)."""
+    for arch_id in ("zamba2-7b", "phi-3-vision-4.2b", "whisper-medium", "qwen1.5-110b"):
+        for name in T_SHAPES:
+            got = teng.terms_analytic(arch_id, T_SHAPES[name])
+            assert dataclasses.astuple(got) == dataclasses.astuple(
+                jeng.terms_analytic(arch_id, J_SHAPES[name])), (arch_id, name)
 
 
 def test_terms_from_dryrun_reads_json(tmp_path):

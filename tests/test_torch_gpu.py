@@ -356,6 +356,14 @@ FLASH_CASES = [
     (1, 16, 8, 1, 1300, 256, True, 1024, 1299, 1300),
     (2, 4, 2, 5, 40, 256, True, None, 30, 35),
     (1, 16, 1, 4, 130, 256, True, None, 100, 110),  # 64 packed rows: two 32-row blocks
+    # the rest of the zoo: whisper-medium's encoder (1,500 frames,
+    # bidirectional, off the 64-row tiles) and cross-attention (64 rows over
+    # 1,500 keys) at batch 1; decode steps at zamba2-7b's head dim 112 and
+    # phi-3-vision-4.2b's 96 (both padded to 128) over their caches
+    (1, 16, 16, 1500, 1500, 64, False, None, 0, None),
+    (1, 16, 16, 64, 1500, 64, False, None, 0, None),
+    (2, 32, 32, 1, 1064, 112, False, None, 1054, 1055),
+    (2, 32, 32, 1, 1640, 96, False, None, 1630, 1631),
 ]
 
 
@@ -491,7 +499,8 @@ def _ssd_inputs(rng, b, s, h, p, g, n, device):
 SSD_CASES = [(2, 4, 1, 3, 16, 8, 16), (2, 4, 2, 2, 32, 8, 16), (1, 4, 1, 1, 40, 32, 16),
              (1, 4, 2, 2, 67, 6, 10), (2, 24, 1, 2, 128, 64, 128),
              (1, 24, 2, 2, 128, 64, 128),  # full width, two groups
-             (2, 6, 1, 2, 48, 16, 32)]  # 6 heads a group
+             (2, 6, 1, 2, 48, 16, 32),  # 6 heads a group
+             (1, 112, 2, 2, 128, 64, 64)]  # zamba2-7b: 56 heads a group, state 64
 
 
 @pytest.mark.parametrize("case", SSD_CASES)

@@ -381,11 +381,30 @@ def test_lm_init_caches_match_reference_shapes():
 
 
 @pytest.mark.parametrize("change,item", [(dict(shared_attn=True), "A8c"),
-                                         (dict(vision=lm.VisionStub(4, 8)), "A8d")])
+                                         (dict(vision=(4, 8)), "A8d")])
 def test_unported_block_kinds_raise_and_name_the_roadmap_item(change, item):
-    cfg = dataclasses.replace(p_star_cfg.SMOKE, **change)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        lm.init(cfg, generator=GEN, device=CPU)
+    """The two LM options ROADMAP A8c and A8d ported, on starcoder2-smoke's
+    attention stack: a shared block before each layer (A8c), and 4 image
+    patches of width 8 prepended (A8d). Logits within 2e-5 of the
+    reference's, and the option's own parameters present."""
+    r_cfg = dataclasses.replace(r_star_cfg.SMOKE, **{
+        k: r_lm.VisionStub(*v) if k == "vision" else v for k, v in change.items()})
+    p_cfg = dataclasses.replace(p_star_cfg.SMOKE, **{
+        k: lm.VisionStub(*v) if k == "vision" else v for k, v in change.items()})
+    params = r_lm.init(jax.random.PRNGKey(13), r_cfg)
+    model = convert.lm_params_from_reference(_np(params), p_cfg, CPU)
+    assert (model.shared is None) == (item != "A8c")
+    assert (model.vision_proj is None) == (item != "A8d")
+    rng = np.random.default_rng(13)
+    tokens = rng.integers(0, r_cfg.vocab, (2, 11)).astype(np.int32)
+    images = rng.normal(size=(2, 4, 8)).astype(np.float32) if item == "A8d" else None
+    r_logits, _ = r_lm_forward(r_cfg, params, jnp.asarray(tokens),
+                               None if images is None else jnp.asarray(images))
+    with torch.no_grad():
+        logits, _ = lm.forward(p_cfg, model, _t(tokens, torch.long),
+                               None if images is None else _t(images))
+    assert tuple(logits.shape) == (2, 11 + (4 if item == "A8d" else 0), r_cfg.vocab)
+    _close(logits, r_logits, atol=2e-5)
 
 
 def test_port_weights_come_from_a_torch_generator():

@@ -18,7 +18,6 @@ from repro import configs as r_configs
 from repro.configs import base as r_base
 from repro.configs import example_lm as r_example
 from repro.launch import steps as r_steps
-from repro.models import lm as r_lm
 from repro_torch import configs, convert
 from repro_torch.configs import base, example_lm
 from repro_torch.launch import serve, steps
@@ -67,14 +66,15 @@ def test_example_configs_keep_the_reference_numbers():
 
 
 def test_registry_holds_the_ported_archs_and_names_the_rest():
-    assert sorted(configs.ARCHS) == [
+    """Every arch of the reference is ported (none is left to name); an
+    unknown id raises ``KeyError``."""
+    assert sorted(configs.ARCHS) == sorted(r_configs.ARCHS) == [
         "gemma3-12b", "granite-20b", "granite-moe-1b-a400m", "mamba2-130m",
-        "phi3.5-moe-42b-a6.6b", "qwen1.5-110b", "starcoder2-3b"]
-    assert sorted([*configs.ARCHS, *configs.NOT_PORTED]) == sorted(r_configs.ARCHS)
-    for arch_id, item in (("zamba2-7b", "A8c"), ("phi-3-vision-4.2b", "A8d"),
-                          ("whisper-medium", "A8e")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            configs.get_arch(arch_id)
+        "phi-3-vision-4.2b", "phi3.5-moe-42b-a6.6b", "qwen1.5-110b", "starcoder2-3b",
+        "whisper-medium", "zamba2-7b"]
+    assert configs.NOT_PORTED == {}
+    assert [a for a in sorted(configs.ARCHS) if configs.get_arch(a).is_encdec()] == [
+        "whisper-medium"]
     with pytest.raises(KeyError):
         configs.get_arch("no-such-arch")
 
@@ -103,15 +103,19 @@ def test_serve_run_matches_reference_prefill_and_serve_steps(arch_id):
     tokens. Float32 SMOKE width: logits within 2e-5."""
     r_arch = r_configs.get_arch(arch_id)
     p_arch = configs.get_arch(arch_id)
-    params = r_lm.init(jax.random.PRNGKey(21), r_arch.smoke)
-    model = convert.lm_params_from_reference(jax.tree_util.tree_map(np.asarray, params),
-                                             p_arch.smoke, "cpu")
-    prompts = serve.make_prompts(p_arch.smoke, 2, 24, seed=21)
+    params = r_arch.init(jax.random.PRNGKey(21), r_arch.smoke)
+    model = convert.params_from_reference(jax.tree_util.tree_map(np.asarray, params),
+                                          p_arch.smoke, "cpu")
+    # whisper's frames come after the prompts, as serve.main draws them
+    prompts, frames = serve.make_inputs(p_arch, p_arch.smoke, 2, 24, seed=21)
     gen = 5
     max_len = 24 + gen + 8
     r_prefill = jax.jit(r_steps.make_prefill(r_arch, r_arch.smoke, max_cache_len=max_len))
     r_step = jax.jit(r_steps.make_serve_step(r_arch, r_arch.smoke))
-    caches, logits = r_prefill(params, {"tokens": jnp.asarray(prompts)})
+    r_batch = {"tokens": jnp.asarray(prompts)}
+    if frames is not None:
+        r_batch["frames"] = jnp.asarray(frames, r_arch.smoke.dtype)
+    caches, logits = r_prefill(params, r_batch)
     tok = jnp.argmax(logits[:, -1], axis=-1).astype(jnp.int32)[:, None]
     want_tokens, want_logits = [np.asarray(tok)], [np.asarray(logits)]
     for _ in range(gen - 1):
@@ -119,7 +123,7 @@ def test_serve_run_matches_reference_prefill_and_serve_steps(arch_id):
         want_tokens.append(np.asarray(tok))
         want_logits.append(np.asarray(logits))
 
-    got = serve.run(p_arch, p_arch.smoke, model, prompts, gen)
+    got = serve.run(p_arch, p_arch.smoke, model, prompts, gen, frames=frames)
     np.testing.assert_array_equal(got.tokens.numpy(), np.concatenate(want_tokens, 1))
     got_logits = [got.prefill_logits] + got.step_logits
     assert len(got_logits) == gen
@@ -156,7 +160,8 @@ def test_serve_sizes_the_cache_prompt_plus_gen_plus_8(monkeypatch):
 
 
 @pytest.mark.parametrize("arch", ["starcoder2-3b", "mamba2-130m", "example-10m", "gemma3-12b",
-                                  "granite-moe-1b-a400m"])
+                                  "granite-moe-1b-a400m", "zamba2-7b", "phi-3-vision-4.2b",
+                                  "whisper-medium"])
 def test_serve_main_end_to_end_on_the_host(arch, capsys):
     argv = ["--arch", arch, "--device", "cpu", "--batch", "2", "--prompt-len", "20",
             "--gen", "4"]

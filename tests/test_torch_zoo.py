@@ -44,6 +44,9 @@ FULL_PARAMS = {
     "phi3.5-moe-42b-a6.6b": 41_872_793_600,
     "starcoder2-3b": 3_029_818_368,
     "mamba2-130m": 128_983_488,
+    "zamba2-7b": 6_699_343_696,
+    "phi-3-vision-4.2b": 3_824_225_280,
+    "whisper-medium": 758_707_200,
 }
 ATOL = 2e-5
 
@@ -87,10 +90,11 @@ def test_registry_covers_every_reference_arch():
 @pytest.mark.parametrize("arch_id", sorted(FULL_PARAMS))
 def test_meta_parameter_count_equals_the_reference(arch_id):
     """Counted on the meta device (nothing allocated, no generator), equal
-    to ``jax.eval_shape``'s count of the reference's init."""
+    to ``jax.eval_shape``'s count of the reference's init (zamba2's shared
+    block once, whisper through ``encdec.init``)."""
     arch, r_arch = configs.get_arch(arch_id), r_configs.get_arch(arch_id)
     shapes = jax.eval_shape(lambda: r_arch.init(jax.random.PRNGKey(0), r_arch.full))
-    model = lm.init(arch.full, generator=None, device="meta")
+    model = arch.init(None, arch.full, device="meta")
     assert common.count_params(model) == r_common.count_params(shapes) == FULL_PARAMS[arch_id]
     assert all(p.device.type == "meta" for p in model.parameters())
 
@@ -285,12 +289,14 @@ def smoke():
     return module
 
 
-@pytest.mark.parametrize("arch_id", NEW_ARCHS)
+@pytest.mark.parametrize("arch_id", NEW_ARCHS + ("zamba2-7b", "phi-3-vision-4.2b",
+                                                 "whisper-medium"))
 def test_serve_golden_is_the_live_reference_and_the_port_meets_it(arch_id, smoke):
     """The committed golden's arrays equal what the reference computes now
     (its weights named by seed); the port, on the weights chip_smoke.py
-    draws from that seed, meets it on the host as the card must: logits
-    within SERVE_GOLDEN_ATOL, greedy tokens equal."""
+    draws from that seed (and the golden's whisper frames or phi-3-vision
+    patches), meets it on the host as the card must: logits within
+    SERVE_GOLDEN_ATOL, greedy tokens equal."""
     from helpers.make_torch_port_serve_golden import golden
     from repro_torch.launch import serve
 
@@ -300,11 +306,11 @@ def test_serve_golden_is_the_live_reference_and_the_port_meets_it(arch_id, smoke
     for key, val in live.items():
         np.testing.assert_array_equal(committed[key], val, err_msg=key)
     arch = configs.get_arch(arch_id)
-    model = convert.lm_params_from_reference(smoke._reference_params(committed, arch_id),
-                                             arch.smoke, CPU)
+    model = convert.params_from_reference(smoke._reference_params(committed, arch_id),
+                                          arch.smoke, CPU)
     want_tokens = committed[f"{arch_id}/tokens"]
     out = serve.run(arch, arch.smoke, model, committed[f"{arch_id}/prompts"],
-                    want_tokens.shape[1])
+                    want_tokens.shape[1], **smoke._serve_extras(committed, arch_id))
     np.testing.assert_array_equal(out.tokens.numpy(), want_tokens)
     _close(out.prefill_logits, committed[f"{arch_id}/prefill_logits"], smoke.SERVE_GOLDEN_ATOL)
     _close(torch.stack(out.step_logits), committed[f"{arch_id}/step_logits"],
