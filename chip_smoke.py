@@ -141,13 +141,34 @@ Phases (every failure raises; nothing is caught):
    gradients, of it the ssd_chunks launches x the kernel's ms, the SSD
    scan's forward and the plain SSD VJP at one layer's shape; compression;
    AdamW).
-10. launches: one JSON line with every kernel's launch count on its main
+10. distribution: (a) the partition rules (parallel/sharding.py) of all
+   ten archs at full width on the meta device, on (16, 16), (2, 16, 16),
+   (2, 4), (4, 2) and (8, 1): param, FSDP, opt-state, batch, cache and
+   activation specs and the bytes a device against the JAX package's in
+   tests/data/torch_port_sharding_golden.json (the moments' one recorded
+   difference, SHARDING_MOMENT_EXTRA, exactly), printing the sharded
+   leaves and the param and moment bytes a device; (b) mamba2-130m at
+   phase 9's full width, trained by runtime/elastic.py's
+   train_compressed over a one-rank NCCL group under its
+   ElasticController: after step 2 an ElasticEvent plans the slice on a
+   PlanningEngine on the card (its planning's own rbf_gram and plan_argmin
+   launches counted apart and required), checkpoints, rebuilds the 1 x 1
+   mesh, restores and reshards, and the run resumes to step 4, its losses
+   held to an
+   uninterrupted run's within ELASTIC_LOSS_REL (the plan, the checkpoint's
+   bytes and the seconds of save, restore and reshard printed; the
+   checkpoint deleted after); (c) 8 gloo ranks on the host save gemma3-12b
+   SMOKE weights on a (2, 4) mesh and take its plain-arm loss there; the
+   card restores the checkpoint (restore_latest), reshards it onto its
+   1 x 1 mesh, holds the values bit for bit and its kernel-arm loss within
+   REMESH_LOSS_REL. The launches of (b) and (c) are counted from 0.
+11. launches: one JSON line with every kernel's launch count on its main
    path (phases 4, 5 and 5b for the planning kernels, 5b's, 5c's, 5d's
    and rbf_gram's in phase 4b beside them, 6b's kernel arms for the
-   serving kernels, phases 8-9's training runs for the codec, each
-   counted from 0 just before its path), its error against the plain
-   version and its times.
-11. the last line: {"ok": true, "device": {...}}.
+   serving kernels, phases 8-9's training runs for the codec, phase 10's
+   runs for all they launch, each counted from 0 just before its path),
+   its error against the plain version and its times.
+12. the last line: {"ok": true, "device": {...}}.
 
 It exits non-zero without a CUDA device, and when the package is missing.
 """
@@ -293,6 +314,25 @@ TRAIN_LAUNCHES = {
 }
 CODEC_SIZES = (150_994_944, 37_748_736, 1_000_003)  # the embedding, an MLP weight, ragged
 CKPT_DIR = os.path.join(HERE, "build", "chip_smoke_ckpt")
+# phase 10: distribution
+SHARDING_GOLDEN = os.path.join(HERE, "tests", "data", "torch_port_sharding_golden.json")
+# optimizer-moment bytes a device the port holds beyond the reference's
+# (m and v): qwen1.5-110b's 80 head-sharded attention q biases, whose one
+# dim "model" takes; the reference's ZeRO-1 shards their group axis over
+# "data" instead, which the port's per-layer tensors do not have (ROADMAP §C)
+SHARDING_MOMENT_EXTRA = {("qwen1.5-110b", "16x16"): 307_200,
+                         ("qwen1.5-110b", "2x16x16"): 307_200,
+                         ("qwen1.5-110b", "2x4"): 655_360,
+                         ("qwen1.5-110b", "4x2"): 1_966_080}
+ELASTIC_DIR = os.path.join(HERE, "build", "chip_smoke_elastic")
+# 10b: the re-meshed run against the uninterrupted one, relative
+ELASTIC_LOSS_REL = 1e-6
+# 10c: the card's loss (kernel arm, f32 SMOKE weights) against the host's
+# plain-arm loss on the (2, 4) gloo mesh: the attention kernel and the
+# host's chunked plain version sum in other orders (phase 6a's SMOKE
+# logits agree within 3.6e-7 of the JAX golden)
+REMESH_LOSS_REL = 1e-5
+REMESH_SPAWN_TIMEOUT_S = 240
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate, fp32 outside the tensor
 # cores, dense bf16 and TF32 on the tensor cores
@@ -361,6 +401,23 @@ def _stage(name: str, t0: float) -> float:
     now = time.perf_counter()
     print(f"[stage] {name}: {now - t0:.3f} s", flush=True)
     return now
+
+
+def _children() -> list:
+    """The command lines of the processes this one started that have not
+    been reaped (from /proc)."""
+    me, kids = os.getpid(), []
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace").strip()
+        except (OSError, ValueError, IndexError):
+            continue
+        if ppid == me:
+            kids.append(f"{pid}: {cmd[:200]}")
+    return kids
 
 
 def _eager_ms(torch, fn, reps: int) -> float:
@@ -2558,6 +2615,266 @@ def phase_train_mamba(torch, np):
     return launches, dict(step_s=step_s, tokens_per_s=batch * seq / step_s)
 
 
+def _spec_form(spec) -> list:
+    """A spec in the sharding golden's form: a one-axis tuple as its name,
+    trailing Nones dropped."""
+    out = [list(e) if isinstance(e, tuple) and len(e) > 1 else
+           e[0] if isinstance(e, tuple) and e else e for e in spec]
+    while out and out[-1] is None:
+        out.pop()
+    return out
+
+
+def sharding_table(torch, arch_id: str, shape, names, golden: dict, state=None) -> dict:
+    """The port's specs for ``arch_id`` at full width (meta tensors; the
+    (params, AdamW state) of ``steps.abstract_train_state`` when given) on
+    a mesh of ``shape``, in the form of tests/data/torch_port_sharding_golden
+    .json's entry ``golden`` (whose batch shapes it reads), keyed by the
+    reference's paths; every layer behind one path must agree."""
+    from repro_torch import convert
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch import steps
+    from repro_torch.parallel import sharding as shd
+
+    arch = get_arch(arch_id)
+    mesh = shd.MeshShape(tuple(shape), tuple(names))
+    params, opt = state or steps.abstract_train_state(arch, arch.full)
+
+    def collapse(specs, key):
+        out = {}
+        for name, spec in specs.items():
+            path, form = key(name, arch.full), _spec_form(spec)
+            if out.setdefault(path, form) != form:
+                raise AssertionError(f"{arch_id}: {name} {form} differs from {path}'s "
+                                     f"{out[path]}")
+        return out
+
+    pspec = shd.param_specs(params, arch, mesh)
+    fspec = shd.param_specs(params, arch, mesh, fsdp=True)
+    ospec = shd.opt_state_specs(opt, pspec, mesh, arch)
+    table = {
+        "tp_mode": shd.tp_mode(arch, mesh),
+        "params": collapse(pspec, convert.reference_param_path),
+        "fsdp": collapse(fspec, convert.reference_param_path),
+        "opt": collapse(ospec["m"], convert.reference_param_path),
+        "param_bytes": shd.bytes_per_device(params, pspec, mesh),
+        "fsdp_param_bytes": shd.bytes_per_device(params, fspec, mesh),
+        "moment_bytes": (shd.bytes_per_device(opt["m"], ospec["m"], mesh)
+                         + shd.bytes_per_device(opt["v"], ospec["v"], mesh)),
+        "batch": {}, "cache": {}, "activation": {},
+    }
+    for cell_name, leaves in golden["batch"].items():
+        cell = SHAPES[cell_name]
+        batch = {k: torch.empty(v["shape"], device="meta") for k, v in leaves.items()}
+        bspec = shd.batch_specs(batch, cell, mesh)
+        table["batch"][cell_name] = {k: {"shape": v["shape"], "spec": _spec_form(bspec[k])}
+                                     for k, v in leaves.items()}
+        act = shd.activation_spec(arch, cell, mesh)
+        table["activation"][cell_name] = None if act is None else _spec_form(act)
+        if cell.kind == "decode":
+            caches = arch.init_caches(arch.full, cell.batch, cell.seq, device="meta")
+            flat = {}
+            shd.map_tree(lambda path, spec: flat.__setitem__(path, spec),
+                         shd.cache_specs(caches, arch, cell, mesh))
+            table["cache"][cell_name] = collapse(flat, convert.reference_cache_path)
+    table["sharded_leaves"] = sum(1 for sp in pspec.values() if any(sp))
+    return table
+
+
+def phase_sharding(torch, np):
+    """10a: the partition rules of all ten archs at full width on the meta
+    device, on the five meshes of the sharding golden, against the JAX
+    package's specs; prints the sharded leaves and the bytes a device."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import steps
+
+    with open(SHARDING_GOLDEN) as f:
+        golden = json.load(f)
+    for arch_id, by_mesh in sorted(golden["archs"].items()):
+        arch = get_arch(arch_id)
+        state = steps.abstract_train_state(arch, arch.full)
+        rows = []
+        for mesh_name, want in by_mesh.items():
+            shape, names = golden["meshes"][mesh_name]
+            got = sharding_table(torch, arch_id, shape, names, want, state)
+            extra = SHARDING_MOMENT_EXTRA.get((arch_id, mesh_name), 0)
+            if got["moment_bytes"] - want["moment_bytes"] != extra:
+                raise AssertionError(f"{arch_id} on {mesh_name}: moments {got['moment_bytes']} "
+                                     f"bytes a device, the reference {want['moment_bytes']}")
+            for key, value in want.items():
+                if key != "moment_bytes" and got[key] != value:
+                    raise AssertionError(f"{arch_id} on {mesh_name}: {key} differs from the "
+                                         f"golden")
+            rows.append(f"{mesh_name} ({got['tp_mode']}): {got['sharded_leaves']} sharded "
+                        f"leaves, params {got['param_bytes'] / 2**30:.3f} GiB, moments "
+                        f"{got['moment_bytes'] / 2**30:.3f} GiB a device")
+        print(f"[sharding] {arch_id}: " + "; ".join(rows), flush=True)
+
+
+def elastic_run(torch, ops, arch_id: str, cfg, batch: int, seq: int, ckpt_dir: str,
+                n_steps: int = 4, event_after: int = 2) -> dict:
+    """Train ``arch_id`` (config ``cfg``) on the card with
+    ``elastic.train_compressed`` twice from one seed: uninterrupted, and
+    under ``ElasticController``, which after step ``event_after`` takes
+    ``ElasticEvent(available_chips=1)``, plans the slice on a
+    ``PlanningEngine`` on the card, checkpoints, rebuilds the 1 x 1 mesh,
+    restores and reshards. Returns the losses of both runs, the
+    controller's plan, the kernel launches of its planning, the
+    checkpoint's bytes and the seconds of save, restore and reshard."""
+    from repro_torch.checkpoint import manager
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.core.planner import EnergyOptimalPlanner
+    from repro_torch.launch import mesh
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import elastic
+
+    arch = get_arch(arch_id)
+    opt_cfg = adamw.AdamWConfig(peak_lr=3e-4, warmup_steps=2, total_steps=n_steps)
+    cell = ShapeCell("train", seq, batch, "train")
+    planner = EnergyOptimalPlanner.default(device=torch.device(DEVICE))
+    times, plan_launches = {}, {}
+
+    def timed(name, fn):
+        def wrapped(*a, **k):
+            _sync(torch)
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            _sync(torch)
+            times[name] = times.get(name, 0.0) + time.perf_counter() - t0
+            return out
+        return wrapped
+
+    ckpt = manager.CheckpointManager(ckpt_dir)
+    ckpt.save = timed("save", ckpt.save)
+    ckpt.restore = timed("restore", ckpt.restore)
+    ctl = elastic.ElasticController(arch, cfg, cell, opt_cfg, ckpt, planner=planner,
+                                    prefer_model=1, device=DEVICE)
+    choose = ctl._choose_chips
+
+    def counted_choose(available):
+        before = dict(ops.LAUNCHES)
+        out = choose(available)
+        plan_launches.update({k: ops.LAUNCHES[k] - before.get(k, 0) for k in ops.LAUNCHES})
+        return out
+
+    ctl._choose_chips = counted_choose
+    real_reshard = elastic.reshard
+    elastic.reshard = timed("reshard", real_reshard)
+    try:
+        resumed = elastic.train_compressed(
+            arch, cfg, opt_cfg, cell, n_steps, controller=ctl, device=DEVICE,
+            events={event_after: elastic.ElasticEvent(available_chips=1, reason="re-mesh")})
+    finally:
+        elastic.reshard = real_reshard
+    plain = elastic.train_compressed(arch, cfg, opt_cfg, cell, n_steps, device=DEVICE)
+    step_dir = os.path.join(ckpt_dir, f"step_{event_after:08d}")
+    return {"losses": resumed, "uninterrupted": plain, "mesh": mesh.describe(ctl.mesh),
+            "plan": ctl.plan.summary(), "plan_launches": plan_launches,
+            "ckpt_bytes": _dir_bytes(step_dir) if os.path.isdir(step_dir) else 0,
+            "seconds": times}
+
+
+def phase_elastic(torch, np, ops, smi):
+    """10b: mamba2-130m at full width (phase 9's batch 2 x seq 4,096),
+    compressed over a one-rank NCCL group, re-meshed under
+    ElasticController after step 2 onto the card's 1 x 1 mesh and resumed
+    to step 4, against the uninterrupted 4-step run."""
+    import shutil
+
+    from repro_torch.configs import get_arch
+
+    batch, seq = _argv_int(TRAIN_FULL_ARGV, "--batch"), _argv_int(TRAIN_FULL_ARGV, "--seq")
+    shutil.rmtree(ELASTIC_DIR, ignore_errors=True)
+    try:
+        r = elastic_run(torch, ops, "mamba2-130m", get_arch("mamba2-130m").full, batch, seq,
+                        ELASTIC_DIR)
+    finally:
+        shutil.rmtree(ELASTIC_DIR, ignore_errors=True)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(r["losses"], r["uninterrupted"]))
+    sec = r["seconds"]
+    planning = {k: r["plan_launches"][k] for k in ("rbf_gram", "plan_argmin")}
+    print(f"[elastic] mamba2-130m (batch {batch} x seq {seq}, compressed): re-meshed after "
+          f"step 2 onto {r['mesh']} (a pool of 1; the controller's plan: {r['plan']}; its "
+          f"planning launched {json.dumps(planning)}); losses {r['losses']} against the uninterrupted "
+          f"{r['uninterrupted']}, largest relative difference {rel:.3e}; checkpoint "
+          f"{r['ckpt_bytes'] / 1e9:.3f} GB, save {sec['save']:.3f} s, restore "
+          f"{sec['restore']:.3f} s, reshard {sec['reshard']:.3f} s on {smi}", flush=True)
+    if not rel <= ELASTIC_LOSS_REL:
+        raise AssertionError(f"elastic: the resumed losses are {rel:.3e} from the "
+                             f"uninterrupted run's")
+    for name, n in planning.items():
+        if n <= 0:
+            raise AssertionError(f"elastic: the controller's plan never launched {name}")
+
+
+def phase_remesh_to_card(torch, np, smi):
+    """10c: 8 gloo ranks on the host place gemma3-12b's SMOKE weights (drawn
+    from a seed) on a (2, 4) mesh, checkpoint them there and take the
+    plain-arm loss on that mesh; the card restores the checkpoint
+    (restore_latest), reshards it onto its 1 x 1 NCCL mesh, and holds the
+    values bit for bit and its loss (kernel arm) within REMESH_LOSS_REL."""
+    import shutil
+
+    from repro_torch.checkpoint.manager import CheckpointManager, reshard
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch import mesh, steps
+    from repro_torch.parallel import sharding as shd
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from helpers import torch_gloo
+
+    arch = get_arch("gemma3-12b")
+    cfg = arch.smoke
+    work = os.path.join(HERE, "build", "chip_smoke_remesh")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        model = arch.init(torch.Generator().manual_seed(SEED), cfg, device="cpu")
+        weights = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        np.savez(os.path.join(work, "weights_gemma3-12b.npz"),
+                 **{k: v.numpy() for k, v in weights.items()})
+        rng = np.random.default_rng(SEED)
+        b = {k: rng.integers(0, cfg.vocab, (8, 32)).astype(np.int64) for k in ("tokens", "labels")}
+        np.savez(os.path.join(work, "b32_gemma3-12b.npz"), **b)
+        t0 = time.perf_counter()
+        outs = torch_gloo.spawn(8, work, [("remesh", (["gemma3-12b"], (2, 4), [(2, 4)], 32))],
+                                timeout=REMESH_SPAWN_TIMEOUT_S)
+        t_host = time.perf_counter() - t0
+        host = outs[0][0]["gemma3-12b"][0]
+        if not host["same"] or any(o != outs[0] for o in outs):
+            raise AssertionError("remesh: the gloo ranks disagree or changed the weights")
+        t0 = time.perf_counter()
+        step, restored = CheckpointManager(os.path.join(work, "ckpt", "gemma3-12b")).restore_latest(
+            {"params": {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+                        for k, v in weights.items()}})
+        card = mesh.make_mesh((1, 1), ("data", "model"), DEVICE)
+        placed = reshard(restored["params"], steps.named(
+            card, shd.param_specs(restored["params"], arch, card)))
+        _sync(torch)
+        t_restore = time.perf_counter() - t0
+        same = all(torch.equal(placed[k].to_local().cpu(), weights[k]) for k in weights)
+        gpu_model = arch.init(torch.Generator(DEVICE).manual_seed(0), cfg, device=DEVICE)
+        cell = ShapeCell("t", 32, 8, "train")
+        loss = torch_gloo.loss_on(arch, cfg, gpu_model, placed,
+                                   {k: torch.from_numpy(v).to(DEVICE) for k, v in b.items()},
+                                   card, cell)
+    finally:
+        torch_gloo.shutdown()
+        shutil.rmtree(work, ignore_errors=True)
+    rel = abs(loss - host["loss"]) / abs(host["loss"])
+    print(f"[remesh] gemma3-12b SMOKE: 8 gloo ranks saved on (2, 4) ({host['sharded_leaves']} "
+          f"leaves sharded, {host['tp_mode']}; {t_host:.1f} s with their start), the card "
+          f"restored step {step} and resharded onto {mesh.describe(card)} in {t_restore:.3f} s: "
+          f"values identical {same}; loss {loss:.7f} on the card (kernels) against "
+          f"{host['loss']:.7f} on the host's mesh (plain), relative {rel:.2e} on {smi}",
+          flush=True)
+    if not same or not rel <= REMESH_LOSS_REL:
+        raise AssertionError(f"remesh: values identical {same}, loss relative {rel:.2e}")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2679,6 +2996,24 @@ def main() -> int:
     for name in ("int8_quantize", "int8_dequantize"):
         launches[name] = train_launches[name]
 
+    phase_sharding(torch, np)
+    t0 = _stage("distribution: the partition rules of ten archs on five meshes", t0)
+    elastic_launches, _ = _counted(ops, lambda: phase_elastic(torch, np, ops, smi))
+    t0 = _stage("distribution: mamba2-130m re-meshed under ElasticController", t0)
+    print(f"[launches] elastic re-mesh: {json.dumps(elastic_launches)}", flush=True)
+    for name in ("rbf_gram", "plan_argmin", "ssd_chunks", "int8_quantize", "int8_dequantize"):
+        if elastic_launches[name] <= 0:
+            raise AssertionError(f"elastic re-mesh: {name} never launched")
+    remesh_launches, _ = _counted(ops, lambda: phase_remesh_to_card(torch, np, smi))
+    t0 = _stage("distribution: a (2, 4) gloo checkpoint resharded onto the card", t0)
+    print(f"[launches] host-to-card re-mesh: {json.dumps(remesh_launches)}", flush=True)
+    if remesh_launches["flash_attention"] <= 0:
+        raise AssertionError("host-to-card re-mesh: flash_attention never launched")
+    for name in ops.LAUNCHES:
+        results[name]["elastic_launches"] = elastic_launches[name]
+        results[name]["remesh_launches"] = remesh_launches[name]
+        launches[name] += elastic_launches[name] + remesh_launches[name]
+
     sources = {
         "rbf_gram": ("src/repro_torch/kernels/csrc/rbf_gram.cu",
                      "src/repro/kernels/rbf_gram.py:42"),
@@ -2712,10 +3047,13 @@ def main() -> int:
                       if key.startswith(("decode_", "train_", "lse_", "fp32_", "d256_",
                                          "mqa_", "d64_", "pairs_", "table1_", "fleet_",
                                          "service_", "mixed_", "serve_", "whisper_",
-                                         "phi3v_", "zamba2_"))})
+                                         "phi3v_", "zamba2_", "elastic_", "remesh_"))})
         if name in ("flash_attention", "ssd_chunks"):
             entry["train_launches"] = train_launches[name]
         line.append(entry)
+    left = _children()
+    if left:
+        raise AssertionError(f"processes this run started are still running: {left}")
     print(f"[total] {time.perf_counter() - t_start:.1f} s on {smi}", flush=True)
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -164,3 +164,35 @@ def params_from_reference(params: Mapping[str, Any], cfg, device: DeviceLike = N
     if isinstance(cfg, encdec.EncDecConfig):
         return encdec_params_from_reference(params, cfg, device)
     return lm_params_from_reference(params, cfg, device)
+
+
+def reference_param_path(name: str, cfg) -> str:
+    """A port parameter's name as the reference's pytree path ("/"-joined):
+    layer ``g * len(pattern) + i``'s leaves live in ``blocks/<i>/...``
+    stacked over groups, an encoder-decoder's ``enc_blocks.<l>`` /
+    ``dec_blocks.<l>`` leaves in ``enc_blocks/...`` / ``dec_blocks/...``
+    stacked over layers."""
+    stack, _, rest = name.partition(".")
+    if stack == "blocks":
+        layer, _, rest = rest.partition(".")
+        return f"blocks/{int(layer) % len(cfg.pattern)}/{rest.replace('.', '/')}"
+    if stack in ("enc_blocks", "dec_blocks"):
+        return f"{stack}/{rest.partition('.')[2].replace('.', '/')}"
+    return name.replace(".", "/")
+
+
+def reference_cache_path(path: str, cfg) -> str:
+    """A port cache leaf's path ("<layer>.<key>", an encoder-decoder's
+    "<layer>.self.k") as the reference's stacked cache path: pattern
+    position i's caches, with zamba2's shared KV caches after them
+    (``(layers, shared)``), or an encoder-decoder's ``{self, cross}``."""
+    layer, _, rest = path.partition(".")
+    rest = rest.replace(".", "/")
+    if isinstance(cfg, encdec.EncDecConfig):
+        return rest
+    n_pat = len(cfg.pattern)
+    if not cfg.shared_attn:
+        return f"{int(layer) % n_pat}/{rest}"
+    if int(layer) >= cfg.n_layers:
+        return f"1/{rest}"
+    return f"0/{int(layer) % n_pat}/{rest}"

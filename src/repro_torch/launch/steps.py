@@ -1,15 +1,19 @@
 """Step functions, the reference's ``launch/steps.py``: ``make_train_step``,
-``make_prefill`` and ``make_serve_step``.
+``make_prefill`` and ``make_serve_step``, and the shardings of their inputs.
 
 PyTorch runs eagerly, so a step is a plain function of (model, inputs);
 ``impl="ref"`` runs every kernel's plain version instead. A train step
 updates the model and the optimizer state in place (``optim/adamw.py``)
-and returns them. The reference's ``zero_shardings`` (ZeRO-1 layouts)
-belong to ``parallel/`` and are not ported (ROADMAP A9).
+and returns them. The shardings of every input come from
+``parallel/sharding.py`` (``named``, ``train_shardings``); the
+activation policy (sequence parallelism for head-indivisible archs) and the
+FSDP gather are installed around a step by ``activation_policy`` and
+``fsdp_policy`` (``parallel/context.py``).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional
 
 import numpy as np
@@ -17,6 +21,8 @@ import torch
 
 from repro_torch.configs.base import ArchDef
 from repro_torch.optim import adamw
+from repro_torch.parallel import context as pctx
+from repro_torch.parallel import sharding as shd
 
 
 def trainable(model: torch.nn.Module) -> Dict[str, torch.nn.Parameter]:
@@ -24,6 +30,17 @@ def trainable(model: torch.nn.Module) -> Dict[str, torch.nn.Parameter]:
     serving, without them); returns {name: parameter}."""
     model.requires_grad_(True)
     return dict(model.named_parameters())
+
+
+def assign(model: torch.nn.Module, params: Dict[str, torch.Tensor]) -> torch.nn.Module:
+    """Make ``params`` ({name: tensor}; DTensors too) ``model``'s parameters
+    in place of its own, keeping each one's ``requires_grad``."""
+    for name, t in params.items():
+        owner, _, leaf = name.rpartition(".")
+        module = model.get_submodule(owner)
+        module._parameters[leaf] = torch.nn.Parameter(
+            t, requires_grad=module._parameters[leaf].requires_grad)
+    return model
 
 
 def batch_to_torch(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
@@ -102,3 +119,51 @@ def make_serve_step(arch: ArchDef, cfg, *, impl: Optional[str] = None):
         return caches, greedy(logits), logits
 
     return serve_step
+
+
+# ---------------------------------------------------------------------------
+# shardings for each entry point
+# ---------------------------------------------------------------------------
+
+
+def named(mesh, spec_tree):
+    """A spec tree as the same tree of ``NamedSharding`` on ``mesh``."""
+    return shd.map_tree(lambda _, spec: shd.NamedSharding(mesh, spec), spec_tree)
+
+
+def abstract_train_state(arch: ArchDef, cfg):
+    """(params {name: tensor}, AdamW state) on the meta device: shapes and
+    dtypes, nothing allocated."""
+    params = dict(arch.init(None, cfg, device="meta").named_parameters())
+    return params, adamw.init(params)
+
+
+def train_shardings(arch: ArchDef, cfg, mesh, cell, params_abs, opt_abs, batch_abs):
+    pspec = shd.param_specs(params_abs, arch, mesh)
+    ospec = shd.opt_state_specs(opt_abs, pspec, mesh, arch)
+    bspec = shd.batch_specs(batch_abs, cell, mesh)
+    return named(mesh, pspec), named(mesh, ospec), named(mesh, bspec)
+
+
+@contextlib.contextmanager
+def activation_policy(arch: ArchDef, cell, mesh):
+    """The step's activation sharding on ``mesh``; inside it a plain tensor
+    that meets a DTensor (positions, masks, constants) is taken as
+    replicated."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    spec = shd.activation_spec(arch, cell, mesh)
+    sharding = None if spec is None else shd.NamedSharding(mesh, spec)
+    with pctx.activation_sharding(sharding), implicit_replication():
+        yield
+
+
+def fsdp_policy(arch: ArchDef, cfg, mesh, params_abs):
+    """When FSDP sharded any layer's weight, install the per-layer gather
+    (``pctx.constrain_group_params``), so one layer's weights are
+    all-gathered at a time instead of the whole model."""
+    full = shd.param_specs(params_abs, arch, mesh, fsdp=True)
+    tp = shd.param_specs(params_abs, arch, mesh, fsdp=False)
+    if full == tp:
+        return contextlib.nullcontext()
+    return pctx.param_gather_sharding(mesh)

@@ -8,8 +8,12 @@
 Wired in as in the reference: the deterministic resumable data pipeline,
 AdamW with its schedule, async checkpoints with preemption-safe restart
 (SIGTERM), straggler telemetry, and optional int8 error-feedback gradient
-compression over the data-parallel group (``--compress``: NCCL on the
-card, gloo on the host; one rank unless ``torchrun`` starts more).
+compression over the data axis (``--compress``: NCCL on the card, gloo on
+the host; one rank unless ``torchrun`` starts more). ``--mesh DxM`` lays
+the world's D * M ranks out as a (data, model) mesh: as in the reference,
+the compressed step replicates the parameters over both axes and splits
+the batch and the gradient reduction over ``data`` only, so the M ranks of
+one data index take the same step.
 ``--auto-energy`` logs the planner's energy-optimal (f, chips) plan for
 the run's shape (``core/planner.py``), from the arch's dry-run artifact
 where one exists, else the analytic roofline (``engine.terms_analytic``).
@@ -76,7 +80,7 @@ def main(argv=None):
     ap.add_argument("--warmup", type=int, default=20)
     ap.add_argument("--ckpt-dir", default=DEFAULT_CKPT_DIR)
     ap.add_argument("--ckpt-every", type=int, default=50)
-    ap.add_argument("--mesh", default="", help="N data ranks; a model axis (DxM) is not ported")
+    ap.add_argument("--mesh", default="", help="e.g. 2x4 -> (data, model); default: all data")
     ap.add_argument("--compress", action="store_true", help="int8 EF grads (DP)")
     ap.add_argument("--auto-energy", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
@@ -118,8 +122,7 @@ def main(argv=None):
     obs.log(f"arch={cfg.name} params={n_params:,} device={dev}")
 
     if args.compress:
-        group = mesh.make_data_group(dev)
-        mesh.parse_mesh(args.mesh, dist.get_world_size(group))
+        group = mesh.make_data_group(dev, mesh.parse_mesh(args.mesh, mesh.init_world(dev)))
         cstep = make_compressed_dp_step(arch, cfg, opt_cfg, group)
         state = {"residuals": compress.init_residuals(params)}
 

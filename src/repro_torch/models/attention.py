@@ -19,6 +19,7 @@ serving step then moves one row per layer, not the whole cache.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -26,6 +27,7 @@ from torch import nn
 
 from repro_torch.kernels import ops
 from repro_torch.models import common
+from repro_torch.parallel import context as pctx
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,8 +61,31 @@ def init(cfg: AttnConfig, dtype, *, generator: torch.Generator, device) -> Atten
 
 
 def _split_heads(x: torch.Tensor, n: int, d: int) -> torch.Tensor:
+    if pctx.is_dtensor(x):
+        x = _whole_heads(x, n)
     b, s, _ = x.shape
     return x.reshape(b, s, n, d).transpose(1, 2)  # (b, h, s, d)
+
+
+def cuts_heads(n: int, places, mesh, dim: int) -> bool:
+    """Whether ``places`` on ``mesh`` split tensor dim ``dim``, which holds
+    ``n`` heads' features, finer than whole heads."""
+    sizes = tuple(mesh.shape)
+    return n % math.prod(sizes[i] for i, place in enumerate(places) if place.is_shard(dim)) != 0
+
+
+def _whole_heads(x, n: int):
+    """x (b, s, n * d), a DTensor, its last dim split only as far as whole
+    heads go. The rules shard by the full config's head counts, so a
+    split that cuts a head arises only on a narrower config's weights
+    (``tests/test_torch_sharding.py`` holds that it never does at full
+    width); it is gathered first."""
+    from torch.distributed.tensor import Replicate
+
+    if not cuts_heads(n, x.placements, x.device_mesh, x.ndim - 1):
+        return x
+    places = [Replicate() if place.is_shard(x.ndim - 1) else place for place in x.placements]
+    return x.redistribute(x.device_mesh, places)
 
 
 def _merge_heads(x: torch.Tensor) -> torch.Tensor:
@@ -85,6 +110,39 @@ def make_cache(cfg: AttnConfig, batch: int, max_len: int, dtype, device) -> dict
     }
 
 
+def _flash(q, k, v, **kw):
+    """``ops.flash_attention``; on DTensors each rank runs it (the kernel,
+    or its plain version on the host) on its own shard: its batch rows and
+    query heads, or query positions, with the keys and values those need.
+    q's placements stay; k and v are redistributed to whole sequences, and
+    to q's heads where they are not split with them."""
+    if not pctx.is_dtensor(q):
+        return ops.flash_attention(q, k, v, **kw)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = q.device_mesh
+    qp = [place if place.is_shard() else Replicate() for place in q.placements]
+    q = q.redistribute(mesh, qp)  # a partial sum is reduced first
+    h, hk = q.shape[1], k.shape[1]
+    head_dims = [i for i, place in enumerate(qp) if place.is_shard(1)]
+    # k and v keep a head split that gives each rank its query heads' groups
+    kv_split = (all(k.placements[i].is_shard(1) for i in head_dims)
+                and hk % math.prod(mesh.size(i) for i in head_dims) == 0)
+    kvp = [Shard(0) if place.is_shard(0) else
+           Shard(1) if place.is_shard(1) and kv_split else
+           Replicate() for place in qp]
+    lo_h, h_l = pctx.local_range(h, mesh, qp, 1)
+    lo_s, _ = pctx.local_range(q.shape[2], mesh, qp, 2)
+    kl = k.redistribute(mesh, kvp).to_local()
+    vl = v.redistribute(mesh, kvp).to_local()
+    if head_dims and not kv_split:  # kv whole: this rank's query heads' own
+        idx = torch.arange(lo_h, lo_h + h_l, device=kl.device) // (h // hk)
+        kl, vl = kl[:, idx], vl[:, idx]
+    kw = {**kw, "q_offset": kw.get("q_offset", 0) + lo_s}
+    out = ops.flash_attention(q.to_local(), kl, vl, **kw)
+    return DTensor.from_local(out, mesh, qp)
+
+
 def forward(p: Attention, cfg: AttnConfig, x: torch.Tensor, *,
             positions: Optional[torch.Tensor] = None, return_cache: bool = False,
             max_cache_len: Optional[int] = None,
@@ -100,8 +158,8 @@ def forward(p: Attention, cfg: AttnConfig, x: torch.Tensor, *,
         pos = torch.arange(s, device=x.device) if positions is None else positions
         q = common.apply_rope(q, pos, cfg.rope_theta)
         k = common.apply_rope(k, pos, cfg.rope_theta)
-    out = ops.flash_attention(q, k, v, causal=cfg.causal and kv_input is None,
-                              window=cfg.window, impl=impl)
+    out = _flash(q, k, v, causal=cfg.causal and kv_input is None, window=cfg.window,
+                 impl=impl)
     out = p.o(_merge_heads(out))
     if not return_cache:
         return out

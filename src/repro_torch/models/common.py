@@ -24,6 +24,8 @@ from typing import Optional
 import torch
 from torch import nn
 
+from repro_torch.parallel import context as pctx
+
 DEFAULT_INIT_STD = 0.02
 
 
@@ -55,10 +57,16 @@ class Linear(nn.Module):
                   if bias else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = x @ self.w
-        if self.b is not None:
-            y = y + self.b
-        return y
+        if pctx.is_dtensor(x):
+            return pctx.local_rows(_affine, x, self.w, self.b)
+        return _affine(x, self.w, self.b)
+
+
+def _affine(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor]) -> torch.Tensor:
+    y = x @ w
+    if b is not None:
+        y = y + b
+    return y
 
 
 class Embed(nn.Module):
@@ -83,6 +91,12 @@ def _matmul_f32(x: torch.Tensor, w_t: torch.Tensor) -> torch.Tensor:
     the operands are upcast, which computes the same function (products of
     bf16 values are exact in f32).
     """
+    if pctx.is_dtensor(x):
+        return pctx.local_rows(_matmul_f32_of, x, w_t)
+    return _matmul_f32_of(x, w_t)
+
+
+def _matmul_f32_of(x: torch.Tensor, w_t: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cuda" and x.dtype in (torch.bfloat16, torch.float16):
         y = _MatmulF32Out.apply(x.reshape(-1, x.shape[-1]), w_t)
         return y.reshape(*x.shape[:-1], w_t.shape[1])
@@ -202,8 +216,10 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     logits (..., v), labels (...) int; with ``mask``, the masked mean."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    nll = logz - gold
+    gold = torch.gather(logits, -1, labels.long()[..., None])
+    # the trailing axis goes after the subtraction: a DTensor's gather over
+    # a vocab-sharded axis is a masked partial sum, reduced whole
+    nll = (logz[..., None] - gold)[..., 0]
     if mask is not None:
         nll = nll * mask
         return nll.sum() / torch.clamp_min(mask.sum(), 1.0)

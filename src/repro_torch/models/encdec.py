@@ -35,6 +35,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention, common
 from repro_torch.models.attention import AttnConfig
+from repro_torch.parallel import context as pctx
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,7 +146,7 @@ def _call(remat: bool, fn, *args, impl):
 
 def _enc_block(blk: EncBlock, cfg: EncDecConfig, h, *, impl):
     h = h + attention.forward(blk.attn, cfg.enc_attn(), blk.ln1(h), impl=impl)
-    return h + blk.mlp(blk.ln2(h))
+    return pctx.constrain(h + blk.mlp(blk.ln2(h)))
 
 
 def encode(cfg: EncDecConfig, model: EncDec, frames: torch.Tensor, *,
@@ -154,6 +155,7 @@ def encode(cfg: EncDecConfig, model: EncDec, frames: torch.Tensor, *,
     stub) -> the encoder's output (b, n_frames, d_model)."""
     h = (frames.to(cfg.dtype)
          + _sinusoid(frames.shape[1], cfg.d_model, frames.device).to(cfg.dtype))
+    h = pctx.constrain(h)
     remat = cfg.remat and torch.is_grad_enabled()
     for blk in model.enc_blocks:
         h = _call(remat, _enc_block, blk, cfg, h, impl=impl)

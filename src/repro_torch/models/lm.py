@@ -41,6 +41,7 @@ from repro_torch.models import attention, common, mamba2, moe
 from repro_torch.models.attention import AttnConfig
 from repro_torch.models.mamba2 import Mamba2Config
 from repro_torch.models.moe import MoEConfig
+from repro_torch.parallel import context as pctx
 
 PORTED_KINDS = ("attn", "local", "moe", "mamba")
 
@@ -178,6 +179,7 @@ def _ffn(blk, cfg: LMConfig, kind: str, z):
 
 def _block_forward(blk, cfg: LMConfig, kind: str, h, positions, *, impl):
     """(h, the MoE's aux dict or None)."""
+    blk = pctx.constrain_group_params(blk)
     if kind == "mamba":
         return h + mamba2.forward(blk.mamba, cfg.mamba_cfg, blk.ln(h), impl=impl), None
     h = h + attention.forward(blk.attn, _attn_cfg(cfg, kind), blk.ln1(h),
@@ -187,6 +189,7 @@ def _block_forward(blk, cfg: LMConfig, kind: str, h, positions, *, impl):
 
 
 def _block_prefill(blk, cfg: LMConfig, kind: str, h, positions, max_len, *, impl):
+    blk = pctx.constrain_group_params(blk)
     if kind == "mamba":
         y, state = mamba2.forward(blk.mamba, cfg.mamba_cfg, blk.ln(h), return_state=True,
                                   impl=impl)
@@ -199,6 +202,7 @@ def _block_prefill(blk, cfg: LMConfig, kind: str, h, positions, max_len, *, impl
 
 
 def _block_decode(blk, cfg: LMConfig, kind: str, h, cache, *, impl):
+    blk = pctx.constrain_group_params(blk)
     if kind == "mamba":
         y, cache = mamba2.decode_step(blk.mamba, cfg.mamba_cfg, blk.ln(h), cache)
         return h + y, cache
@@ -268,7 +272,7 @@ def forward(cfg: LMConfig, model: LM, tokens: torch.Tensor, images=None, *,
     those inputs) changes memory only; the port keeps one input a layer
     for every config.
     """
-    h = _embed_inputs(cfg, model, tokens, images)
+    h = pctx.constrain(_embed_inputs(cfg, model, tokens, images))
     h0 = h
     positions = torch.arange(h.shape[1], device=h.device)
     remat = cfg.remat and torch.is_grad_enabled()
@@ -287,6 +291,8 @@ def forward(cfg: LMConfig, model: LM, tokens: torch.Tensor, images=None, *,
         if moe_aux is not None:  # summed in layer order, as the reference's scan carry
             lb = lb + moe_aux["load_balance_loss"]
             z = z + moe_aux["router_z_loss"]
+        if (layer + 1) % len(cfg.pattern) == 0:  # a group's end
+            h = pctx.constrain(h)
     return _logits(cfg, model, h), {"lb": lb, "z": z}
 
 

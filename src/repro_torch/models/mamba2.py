@@ -21,6 +21,7 @@ from torch import nn
 
 from repro_torch.kernels import ops
 from repro_torch.models import common
+from repro_torch.parallel import context as pctx
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,6 +104,35 @@ def _gated_rmsnorm(scale: torch.Tensor, y: torch.Tensor, z: torch.Tensor,
     return (yf * torch.rsqrt(ms + eps) * scale.float()).to(y.dtype)
 
 
+def _ssd(x, dt, A, B, C, **kw):
+    """``ops.ssd_scan``; on DTensors each rank scans (the kernel, or its
+    plain version on the host) its own batch rows and heads over the whole
+    sequence, with its heads' groups of B and C: the scan is local to a
+    head."""
+    if not pctx.is_dtensor(x):
+        return ops.ssd_scan(x, dt, A, B, C, **kw)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = x.device_mesh
+    xp = [Shard(0) if place.is_shard(0) else Shard(2) if place.is_shard(2) else Replicate()
+          for place in x.placements]  # (b, s, h, p); dt (b, s, h) alike
+    ap = [Shard(0) if place.is_shard(2) else Replicate() for place in xp]
+    bcp = [Shard(0) if place.is_shard(0) else Replicate() for place in xp]
+    h, g = x.shape[2], B.shape[2]
+    lo_h, h_l = pctx.local_range(h, mesh, xp, 2)
+    Bl, Cl = (t.redistribute(mesh, bcp).to_local() for t in (B, C))
+    if h_l < h:  # one group a local head
+        idx = torch.arange(lo_h, lo_h + h_l, device=Bl.device) // (h // g)
+        Bl, Cl = Bl[:, :, idx], Cl[:, :, idx]
+    out = ops.ssd_scan(x.redistribute(mesh, xp).to_local(),
+                       dt.redistribute(mesh, xp).to_local(),
+                       A.redistribute(mesh, ap).to_local(), Bl, Cl, **kw)
+    if not kw.get("return_state"):
+        return DTensor.from_local(out, mesh, xp)
+    state_p = [Shard(1) if place.is_shard(2) else place for place in xp]  # (b, h, n, p)
+    return DTensor.from_local(out[0], mesh, xp), DTensor.from_local(out[1], mesh, state_p)
+
+
 def forward(p: Mamba2, cfg: Mamba2Config, x: torch.Tensor, *, return_state: bool = False,
             impl: Optional[str] = None):
     """x (b, s, d_model) -> (b, s, d_model) [, state {conv, ssm}]."""
@@ -116,8 +146,8 @@ def forward(p: Mamba2, cfg: Mamba2Config, x: torch.Tensor, *, return_state: bool
     dt = torch.nn.functional.softplus(dt_raw.float() + p.dt_bias)  # (b, s, h)
     A = -torch.exp(p.A_log)
     xh = xs.reshape(b, s, h, pd)
-    out = ops.ssd_scan(xh, dt, A, Bc, Cc, chunk=min(cfg.chunk, max(16, s)),
-                       return_state=return_state, impl=impl)
+    out = _ssd(xh, dt, A, Bc, Cc, chunk=min(cfg.chunk, max(16, s)),
+               return_state=return_state, impl=impl)
     y, ssm_state = out if return_state else (out, None)
     y = y + p.D[None, None, :, None] * xh.float()
     y = y.reshape(b, s, cfg.d_inner).to(x.dtype)

@@ -16,7 +16,7 @@ fleet needs, exercised here single-host:
 
 In the port the step updates the model and optimizer state in place and
 returns them; ``try_restore`` copies a checkpoint into them in place. The
-elastic re-mesh (``runtime/elastic.py``) is not ported (ROADMAP A9).
+elastic re-mesh is ``runtime/elastic.py``'s ``ElasticController``.
 """
 
 from __future__ import annotations

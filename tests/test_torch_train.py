@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from helpers import make_torch_port_train_golden as tg
+from helpers import torch_gloo
 from repro.data import pipeline as r_pipeline
 from repro_torch import convert
 from repro_torch.checkpoint.manager import CheckpointManager
@@ -322,10 +323,18 @@ def test_train_main_on_the_host(arch_id, compress_flag, tmp_path):
 
 
 def test_train_main_refuses_what_is_not_ported(tmp_path):
-    base = ["--arch", "mamba2-130m", "--smoke", "--device", "cpu", "--steps", "1",
-            "--ckpt-dir", str(tmp_path)]
-    with pytest.raises(NotImplementedError, match="A9"):
-        train.main(base + ["--compress", "--mesh", "1x2"])
+    """Without a card, the default device raises. ``--compress --mesh 1x2``
+    (the model axis, once refused) runs on 2 gloo ranks, and each rank's
+    losses are the 1-rank compressed run's: the two model ranks of the one
+    data index take the same step."""
+    argv = ["--arch", "mamba2-130m", "--smoke", "--device", "cpu", "--steps", "3",
+            "--batch", "4", "--seq", "32", "--compress"]
+    want = train.main(argv + ["--ckpt-dir", str(tmp_path / "one")])
+    outs = torch_gloo.spawn(
+        2, tmp_path, [("train", (argv + ["--mesh", "1x2", "--ckpt-dir", str(tmp_path / "mesh")],))],
+        timeout=240)
+    for (out,) in outs:
+        assert out["losses"] == [h["loss"] for h in want["history"]] and out["step"] == 3
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train.main(["--arch", "mamba2-130m", "--smoke", "--steps", "1"])
