@@ -162,13 +162,33 @@ Phases (every failure raises; nothing is caught):
    card restores the checkpoint (restore_latest), reshards it onto its
    1 x 1 mesh, holds the values bit for bit and its kernel-arm loss within
    REMESH_LOSS_REL. The launches of (b) and (c) are counted from 0.
-11. launches: one JSON line with every kernel's launch count on its main
+11. dry run: (a) launch.dryrun.run_cell for all 66 production cells (ten
+   archs x train_4k, prefill_32k, decode_32k, long_500k for three, on the
+   pod and multipod meshes; the mesh's device the card, the shards meta
+   tensors) in DRYRUN_WORKERS processes under build/chip_smoke_dryrun/,
+   each record against the reference's in
+   tests/data/torch_port_dryrun_golden.json: ok, argument bytes equal but
+   for the recorded deltas, and outside the limits (flops 5%, memory and
+   each collective kind 2x) exactly where
+   tests/data/torch_port_dryrun_exceptions.json records, each such
+   metric equal to the port's count recorded there for this torch version
+   (`[dryrun]` lines: both counts and their ratio); no kernel launched;
+   (b) the
+   port's records and the reference's planned on the card
+   (workloads_from_artifacts -> plan_many: each pod cell's chips and
+   frequency under both and the deciding term, `[dryrun-plan]`), then
+   python -m repro_torch.fleet --quick --artifacts on each set
+   (`[dryrun-fleet]`); the planning kernels' launches counted by shape,
+   every call replayed against the plain version, and added to the
+   launches line (dryrun_launches); (c) python -m repro_torch.analysis
+   over the checkout exits 0 (`[lint]`).
+12. launches: one JSON line with every kernel's launch count on its main
    path (phases 4, 5 and 5b for the planning kernels, 5b's, 5c's, 5d's
    and rbf_gram's in phase 4b beside them, 6b's kernel arms for the
-   serving kernels, phases 8-9's training runs for the codec, phase 10's
-   runs for all they launch, each counted from 0 just before its path),
-   its error against the plain version and its times.
-12. the last line: {"ok": true, "device": {...}}.
+   serving kernels, phases 8-9's training runs for the codec, phases 10's
+   and 11's runs for all they launch, each counted from 0 just before its
+   path), its error against the plain version and its times.
+13. the last line: {"ok": true, "device": {...}}.
 
 It exits non-zero without a CUDA device, and when the package is missing.
 """
@@ -333,6 +353,20 @@ ELASTIC_LOSS_REL = 1e-6
 # logits agree within 3.6e-7 of the JAX golden)
 REMESH_LOSS_REL = 1e-5
 REMESH_SPAWN_TIMEOUT_S = 240
+# phase 11: the port's dry run of all 66 production cells, in worker
+# processes (each its own fake world), against the reference's records
+# (tests/data/torch_port_dryrun_golden.json) under the limits and the
+# recorded exceptions of tests/helpers/torch_dryrun_parity.py
+DRYRUN_DIR = os.path.join(HERE, "build", "chip_smoke_dryrun")
+DRYRUN_WORKERS = 6
+DRYRUN_TIMEOUT_S = 400
+DRYRUN_WORKER = (
+    "import json, sys\n"
+    "from repro_torch.kernels import ops\n"
+    "from repro_torch.launch import dryrun\n"
+    "for cell in sys.argv[3:]:\n"
+    "    dryrun.run_cell(*cell.split(':'), sys.argv[1], device=sys.argv[2])\n"
+    "print(json.dumps(dict(ops.LAUNCHES)))\n")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate, fp32 outside the tensor
 # cores, dense bf16 and TF32 on the tensor cores
@@ -2875,6 +2909,156 @@ def phase_remesh_to_card(torch, np, smi):
         raise AssertionError(f"remesh: values identical {same}, loss relative {rel:.2e}")
 
 
+def _parity():
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from helpers import torch_dryrun_parity
+
+    return torch_dryrun_parity
+
+
+def phase_dryrun(smi):
+    """11a: ``launch.dryrun.run_cell`` for every production cell, on the
+    card's machine (the mesh's device the card), in DRYRUN_WORKERS
+    processes; each record against the reference's golden, and each
+    recorded gap against the port's count recorded for this torch version.
+    Returns the records by key."""
+    import shutil
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.dryrun import all_cells
+
+    parity = _parity()
+    golden = parity.load_golden()["full"]
+    version = parity.torch_version()
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    os.makedirs(DRYRUN_DIR)
+    cells = [":".join(c) for c in all_cells()]
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", DRYRUN_WORKER, DRYRUN_DIR, DEVICE,
+                               *cells[i::DRYRUN_WORKERS]], env=env, text=True,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+             for i in range(DRYRUN_WORKERS)]
+    try:
+        outs = [p.communicate(timeout=DRYRUN_TIMEOUT_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for p, (out, err) in zip(procs, outs):
+        if p.returncode:
+            raise AssertionError(f"dry-run worker exited {p.returncode}: {err[-3000:]}")
+        launched = json.loads(out.strip().splitlines()[-1])
+        if any(launched.values()):
+            raise AssertionError(f"a dry run launched kernels: {launched}")
+    records, bad = {}, []
+    for cell in cells:
+        arch_id, shape, mesh = cell.split(":")
+        key = "__".join((arch_id, shape, mesh))
+        with open(os.path.join(DRYRUN_DIR, key + ".json")) as f:
+            rec = records[key] = json.load(f)
+        ref = golden[key]
+        if not rec["ok"]:
+            bad.append(f"{key}: {rec['error']}")
+            continue
+        ph, rh = rec["hlo"], ref["hlo"]
+        outside = parity.gaps(rec, ref)
+        listed = parity.EXCEPTIONS.get(key, {})
+        arch = get_arch(arch_id)
+        arg = (rec["memory_analysis"]["argument_size_in_bytes"]
+               - ref["memory_analysis"]["argument_size_in_bytes"])
+        want_arg = parity.argument_delta(key, arch, arch.full)
+        print(f"[dryrun] {key}: flops {ph['flops_per_device']:.4e} / "
+              f"{rh['flops_per_device']:.4e} = "
+              f"{parity.ratio(ph['flops_per_device'], rh['flops_per_device']):.3f}; memory "
+              f"{ph['memory_bytes_per_device']:.4e} / {rh['memory_bytes_per_device']:.4e} = "
+              f"{parity.ratio(ph['memory_bytes_per_device'], rh['memory_bytes_per_device']):.3f}"
+              f"; collectives {ph['collective_bytes_per_device']:.4e} / "
+              f"{rh['collective_bytes_per_device']:.4e} = "
+              f"{parity.ratio(ph['collective_bytes_per_device'], rh['collective_bytes_per_device']):.3f}"
+              f"; outside the limits {sorted(outside)}", flush=True)
+        if sorted(outside) != sorted(listed):
+            bad.append(f"{key}: outside {sorted(outside)}, recorded {sorted(listed)}")
+        bad.extend(parity.drift(key, rec, ref, version))
+        if arg != want_arg:
+            bad.append(f"{key}: argument bytes {arg:+d} against the reference, not {want_arg:+d}")
+    print(f"[dryrun] {len(cells)} cells in {wall:.1f} s on {DRYRUN_WORKERS} processes on {smi}",
+          flush=True)
+    if bad:
+        raise AssertionError("dry run against the reference's records:\n" + "\n".join(bad))
+    return records
+
+
+def phase_dryrun_plans(torch, smi):
+    """11b: the port's records and the reference's planned on the card:
+    ``workloads_from_artifacts`` -> ``plan_many`` (each pod cell's chosen
+    chips and frequency under both, and the term that decides a plan where
+    they differ), then ``python -m repro_torch.fleet --quick --artifacts``
+    on both record sets."""
+    from repro_torch.core.characterize import workloads_from_artifacts
+    from repro_torch.core.engine import PlanningEngine
+    from repro_torch.fleet import __main__ as fleet_main
+
+    golden = _parity().load_golden()["full"]
+    ref_dir = DRYRUN_DIR + "_reference"
+    os.makedirs(ref_dir, exist_ok=True)
+    for key, rec in golden.items():
+        arch_id, shape, mesh = key.split("__")
+        with open(os.path.join(ref_dir, key + ".json"), "w") as f:
+            json.dump(dict(rec, arch=arch_id, shape=shape, mesh=mesh), f)
+    eng = PlanningEngine.default(device=DEVICE)
+    plans = {}
+    for label, d in (("port", DRYRUN_DIR), ("reference", ref_dir)):
+        ws = workloads_from_artifacts(d)
+        plans[label] = {(w.arch, w.shape_name): (w.terms, p)
+                        for w, p in zip(ws, eng.plan_many(ws))}
+    if sorted(plans["port"]) != sorted(plans["reference"]):
+        raise AssertionError(f"the intake read {sorted(plans['port'])} from the port's records "
+                             f"and {sorted(plans['reference'])} from the reference's")
+
+    def deciding(terms):
+        parts = {"compute": terms.compute_s, "memory": terms.memory_s,
+                 "collective": terms.collective_s}
+        return max(parts, key=parts.get)
+
+    differ = 0
+    for cell in sorted(plans["port"]):
+        (pt, pp), (rt, rp) = plans["port"][cell], plans["reference"][cell]
+        same = (pp.chips, pp.frequency_ghz) == (rp.chips, rp.frequency_ghz)
+        differ += not same
+        print(f"[dryrun-plan] {cell[0]} {cell[1]} pod: port {pp.chips} chips at "
+              f"{pp.frequency_ghz:g} GHz ({deciding(pt)}-bound: compute {pt.compute_s:.4g} s, "
+              f"memory {pt.memory_s:.4g} s, collective {pt.collective_s:.4g} s), reference "
+              f"{rp.chips} chips at {rp.frequency_ghz:g} GHz ({deciding(rt)}-bound: compute "
+              f"{rt.compute_s:.4g} s, memory {rt.memory_s:.4g} s, collective "
+              f"{rt.collective_s:.4g} s){'' if same else ' DIFFER'}", flush=True)
+    print(f"[dryrun-plan] {len(plans['port'])} pod cells: {differ} plans differ between the "
+          f"port's records and the reference's, on {smi}", flush=True)
+    for label, d in (("port", DRYRUN_DIR), ("reference", ref_dir)):
+        t0 = time.perf_counter()
+        report = fleet_main.main(["--quick", "--artifacts", d, "--device", DEVICE])
+        _sync(torch)
+        eng_stats = report.scenarios["engine"]
+        print(f"[dryrun-fleet] python -m repro_torch.fleet --quick --artifacts ({label}'s "
+              f"records): {eng_stats.n_jobs} jobs, {eng_stats.total_energy_j:.6g} J, "
+              f"{eng_stats.deadline_misses} misses, {eng_stats.recharacterizations} refits, "
+              f"{time.perf_counter() - t0:.2f} s on {smi}", flush=True)
+
+
+def phase_lint():
+    """11c: the port's repro-lint over this checkout, against the port's
+    baseline: it must exit 0."""
+    r = subprocess.run([sys.executable, "-m", "repro_torch.analysis"], cwd=HERE, text=True,
+                       capture_output=True, timeout=120,
+                       env=dict(os.environ, PYTHONPATH=os.path.join(HERE, "src")))
+    print(f"[lint] python -m repro_torch.analysis: {r.stdout.strip().splitlines()[-1]}",
+          flush=True)
+    if r.returncode:
+        raise AssertionError(f"repro-lint exited {r.returncode}:\n{r.stdout[-3000:]}")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3014,6 +3198,25 @@ def main() -> int:
         results[name]["remesh_launches"] = remesh_launches[name]
         launches[name] += elastic_launches[name] + remesh_launches[name]
 
+    before = dict(ops.LAUNCHES)
+    phase_dryrun(smi)
+    if dict(ops.LAUNCHES) != before:
+        raise AssertionError("the dry run moved the launch counts")
+    t0 = _stage("dry run: the port's 66 production cells against the reference's", t0)
+    dryrun_calls = {}
+    dryrun_launches, dryrun_shapes = _counted(ops, lambda: phase_dryrun_plans(torch, smi),
+                                              dryrun_calls)
+    t0 = _stage("dry run: the records planned, plan_many and the fleet's --artifacts", t0)
+    print(f"[launches] dry-run records planned: {json.dumps(dryrun_launches)}", flush=True)
+    for name, numbers in phase_fleet_kernels(torch, np, kind, dryrun_shapes, dryrun_calls,
+                                             label="dry-run records planned",
+                                             prefix="dryrun").items():
+        results[name].update(numbers, dryrun_launches=dryrun_launches[name])
+        launches[name] += dryrun_launches[name]
+    t0 = _stage("dry run: the planning kernels at its shapes", t0)
+    phase_lint()
+    t0 = _stage("repro-lint over the checkout", t0)
+
     sources = {
         "rbf_gram": ("src/repro_torch/kernels/csrc/rbf_gram.cu",
                      "src/repro/kernels/rbf_gram.py:42"),
@@ -3047,7 +3250,8 @@ def main() -> int:
                       if key.startswith(("decode_", "train_", "lse_", "fp32_", "d256_",
                                          "mqa_", "d64_", "pairs_", "table1_", "fleet_",
                                          "service_", "mixed_", "serve_", "whisper_",
-                                         "phi3v_", "zamba2_", "elastic_", "remesh_"))})
+                                         "phi3v_", "zamba2_", "elastic_", "remesh_",
+                                         "dryrun_"))})
         if name in ("flash_attention", "ssd_chunks"):
             entry["train_launches"] = train_launches[name]
         line.append(entry)

@@ -11,7 +11,7 @@ routes each entry point to ``models/lm.py`` for an ``LMConfig`` and to
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Union
 
 import torch
 
@@ -85,3 +85,45 @@ class ArchDef:
 
     def decode_step(self, cfg, model, caches, token, *, impl: Optional[str] = None):
         return self._family().decode_step(cfg, model, caches, token, impl=impl)
+
+    # ---- input specs (meta tensors, no allocation) ----------------------
+
+    def supports(self, shape_name: str) -> bool:
+        if shape_name == "long_500k" and not self.long_500k_ok:
+            return False
+        return True
+
+    def input_specs(self, shape: Union[str, ShapeCell], cfg=None) -> Dict[str, torch.Tensor]:
+        """Model inputs for one shape cell (a name of ``SHAPES`` or a
+        ``ShapeCell``), as meta tensors of the reference's shapes and
+        dtypes: token ids int32 (the embedding takes them, and
+        ``cross_entropy`` widens the labels itself).
+
+        train  -> {tokens, labels[, images|frames]}
+        prefill-> {tokens[, images|frames]}
+        decode -> {token}   (caches are built separately via init_caches)
+        """
+        cfg = cfg or self.full
+        cell = SHAPES[shape] if isinstance(shape, str) else shape
+
+        def meta(*dims, dtype=torch.int32):
+            return torch.empty(dims, dtype=dtype, device="meta")
+
+        if cell.kind == "decode":
+            return {"token": meta(cell.batch, 1)}
+        if self.is_encdec():
+            # seq applies to the encoder frame axis; decoder tokens are
+            # bounded by the model's max target length.
+            tok_len = min(cell.seq, cfg.max_target_len)
+            out = {"frames": meta(cell.batch, cell.seq, cfg.d_model, dtype=torch.bfloat16),
+                   "tokens": meta(cell.batch, tok_len)}
+            if cell.kind == "train":
+                out["labels"] = meta(cell.batch, tok_len)
+            return out
+        out = {"tokens": meta(cell.batch, cell.seq)}
+        if cell.kind == "train":
+            out["labels"] = meta(cell.batch, cell.seq)
+        if cfg.vision is not None:
+            out["images"] = meta(cell.batch, cfg.vision.n_patches, cfg.vision.d_vision,
+                                 dtype=torch.bfloat16)
+        return out

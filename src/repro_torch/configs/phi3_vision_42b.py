@@ -24,7 +24,7 @@ FULL = LMConfig(
     act="silu",
     tie_embeddings=False,
     vision=VisionStub(n_patches=576, d_vision=1024),
-    scan_nest=8,  # 8x4 nested scan remat in the reference
+    scan_nest=8,  # 8x4 nested scan remat
     dtype=torch.bfloat16,
 )
 

@@ -3,8 +3,7 @@ weight-SHARED attention block (32H, d_ff=14336) invoked once per 3-layer
 group -- the Zamba2 signature. vocab=32000. [arXiv:2411.15242]
 
 long_500k RUNS: the Mamba2 backbone is O(1)-state per decode step.
-The reference's ``configs/zamba2_7b.py``, with torch dtypes; the port
-keeps one input a layer under recomputation and ignores ``scan_nest``.
+The reference's ``configs/zamba2_7b.py``, with torch dtypes.
 """
 
 import torch
@@ -29,7 +28,7 @@ FULL = LMConfig(
     norm="rmsnorm",
     act="gelu",
     tie_embeddings=True,
-    scan_nest=9,  # 9x3 nested scan remat in the reference
+    scan_nest=9,  # 9x3 nested scan remat
     dtype=torch.bfloat16,
 )
 

@@ -27,6 +27,7 @@ a gradient, and no error.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -121,9 +122,38 @@ def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = Non
     return _FlashAttention.apply(q, k, v, kw, impl)
 
 
+def flash_attention_lse(q, k, v, *, causal: bool = True, window: Optional[int] = None,
+                        scale: Optional[float] = None, q_offset: int = 0,
+                        kv_len: Optional[int] = None, impl: Optional[str] = None):
+    """``flash_attention`` and its log-sum-exp (b, h, sq) f32, forward
+    only (decode over a cache split by sequence merges the ranks' parts by
+    it)."""
+    kw = dict(causal=causal, window=window, scale=scale, q_offset=q_offset, kv_len=kv_len)
+    return _flash_forward(q, k, v, kw, impl, return_lse=True)
+
+
+_PLAIN_BLOCKS: dict = {}
+
+
+@contextlib.contextmanager
+def plain_attention_blocks(block_q: int, block_k: int):
+    """Within the block, the plain attention (forward and backward) runs
+    with query and key blocks of these sizes, in place of
+    ``ref.flash_attention_ref``'s 512: the same products and score
+    elements, with fewer blocks to step through (the dry run's trace uses
+    one block each way)."""
+    prev = dict(_PLAIN_BLOCKS)
+    _PLAIN_BLOCKS.update(block_q=block_q, block_k=block_k)
+    try:
+        yield
+    finally:
+        _PLAIN_BLOCKS.clear()
+        _PLAIN_BLOCKS.update(prev)
+
+
 def _flash_forward(q, k, v, kw, impl, return_lse=False):
     if not use_kernel(q, impl):
-        return ref.flash_attention_ref(q, k, v, return_lse=return_lse, **kw)
+        return ref.flash_attention_ref(q, k, v, return_lse=return_lse, **kw, **_PLAIN_BLOCKS)
     return flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
                                 return_lse=return_lse, **kw)
 
@@ -143,7 +173,8 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, g):
         q, k, v = ctx.saved_tensors
         out, lse = _flash_forward(q, k, v, ctx.kw, ctx.impl, return_lse=True)
-        dq, dk, dv = ref.flash_attention_bwd_ref(q, k, v, out, lse, g.to(q.dtype), **ctx.kw)
+        dq, dk, dv = ref.flash_attention_bwd_ref(q, k, v, out, lse, g.to(q.dtype), **ctx.kw,
+                                                 **_PLAIN_BLOCKS)
         return dq, dk, dv, None, None
 
 

@@ -12,6 +12,14 @@ The world comes from, in order:
   ``MASTER_ADDR``, ``MASTER_PORT`` in the environment);
 * else a one-rank world on a ``FileStore`` in a temporary directory.
 
+The dry run (``launch/dryrun.py``) runs in a world of its own:
+``dryrun_world`` brings up a fake process group of ``DRYRUN_WORLD`` (512)
+ranks in this one process (``torch.testing``'s ``fake`` backend: its
+collectives return at once, and nothing is sent), and
+``make_dryrun_mesh`` lays a mesh over its first ranks, as the
+reference's ``make_mesh`` takes the first of its 512 placeholder devices.
+Nothing opens a world at import.
+
 The backend follows the device: NCCL for a CUDA device, gloo for the CPU,
 never one in place of the other (a world already up with the other
 backend raises). NCCL takes one rank a card, so one card holds a 1 x 1
@@ -22,6 +30,7 @@ cards.
 from __future__ import annotations
 
 import atexit
+import contextlib
 import math
 import os
 import shutil
@@ -87,9 +96,45 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], device) -> DeviceMesh:
 
 
 def make_production_mesh(device, *, multi_pod: bool = False) -> DeviceMesh:
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return make_mesh(shape, axes, device)
+    return make_mesh(*production_shape(multi_pod), device)
+
+
+DRYRUN_WORLD = 512  # 2 pods x 256 chips
+
+
+@contextlib.contextmanager
+def dryrun_world(n: int = DRYRUN_WORLD):
+    """A fake process group of ``n`` ranks, this process rank 0, for the
+    enclosed block; torn down on exit, so that a world of another
+    backend can come up after it (``init_world`` refuses a mismatch).
+    Raises if a process group is already up."""
+    if dist.is_initialized():
+        raise RuntimeError(f"a process group ({dist.get_backend()!r}) is already up; "
+                           f"the dry run needs a world of its own")
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def make_dryrun_mesh(shape: Sequence[int], axes: Sequence[str], device) -> DeviceMesh:
+    """A ``DeviceMesh`` of ``shape`` over the first prod(shape) ranks of
+    the dry-run world (``dryrun_world``), named ``axes``."""
+    n = math.prod(shape)
+    if n > dist.get_world_size():
+        raise ValueError(f"need {n} ranks, the world has {dist.get_world_size()}")
+    return DeviceMesh(torch.device(device).type, torch.arange(n).reshape(tuple(shape)),
+                      mesh_dim_names=tuple(axes))
+
+
+def production_shape(multi_pod: bool):
+    """(shape, axes) of the single-pod or the 2-pod mesh."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
 
 
 def describe(mesh) -> str:

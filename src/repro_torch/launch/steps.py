@@ -14,6 +14,7 @@ FSDP gather are installed around a step by ``activation_policy`` and
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import Dict, Optional
 
 import numpy as np
@@ -76,15 +77,20 @@ def make_train_step(arch: ArchDef, cfg, opt_cfg: adamw.AdamWConfig, *, accum: in
     def train_step(model, opt_state, batch):
         params = trainable(model)
         if accum > 1:
-            gsum = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                    for k, p in params.items()}
+            gsum = None
             lsum = torch.zeros((), dtype=torch.float32, device=batch["tokens"].device)
             parts_all = []
             for i in range(accum):
-                mb = {k: v[i::accum] for k, v in batch.items()}
+                mb = {k: microbatch(v, i, accum) for k, v in batch.items()}
                 loss, parts, grads = loss_and_grads(arch, cfg, model, mb, impl=impl)
-                for k, g in grads.items():
-                    gsum[k] += g.to(torch.float32)
+                # the first microbatch's gradients start the sum (0 + g is
+                # g), so a DTensor gradient's partial sum over the data
+                # axis stays partial until the optimizer reduces it once
+                if gsum is None:
+                    gsum = {k: g.to(torch.float32) for k, g in grads.items()}
+                else:
+                    for k, g in grads.items():
+                        gsum[k] += g.to(torch.float32)
                 lsum = lsum + loss
                 parts_all.append(parts)
             grads = {k: g / accum for k, g in gsum.items()}
@@ -98,6 +104,22 @@ def make_train_step(arch: ArchDef, cfg, opt_cfg: adamw.AdamWConfig, *, accum: in
     return train_step
 
 
+def microbatch(x: torch.Tensor, i: int, accum: int) -> torch.Tensor:
+    """Rows i, i + accum, ... of ``x``. A DTensor whose rows are split
+    evenly in multiples of ``accum`` a rank takes them from each rank's
+    own rows: those are the same global rows, and the batch keeps its
+    data sharding, as the reference's split of the minor part does."""
+    if pctx.is_dtensor(x) and any(p.is_shard(0) for p in x.placements):
+        from torch.distributed.tensor import DTensor
+
+        local = x.to_local()
+        if local.shape[0] % accum == 0 and x.shape[0] == local.shape[0] * math.prod(
+                x.device_mesh.size(d) for d, p in enumerate(x.placements) if p.is_shard(0)):
+            return DTensor.from_local(local[i::accum], x.device_mesh, x.placements,
+                                      run_check=False)
+    return x[i::accum]
+
+
 def make_prefill(arch: ArchDef, cfg, *, max_cache_len: int, impl: Optional[str] = None):
     def prefill_step(model, batch):
         return arch.prefill(cfg, model, batch, max_cache_len=max_cache_len, impl=impl)
@@ -107,8 +129,13 @@ def make_prefill(arch: ArchDef, cfg, *, max_cache_len: int, impl: Optional[str] 
 
 def greedy(logits: torch.Tensor) -> torch.Tensor:
     """(b, s, vocab) -> (b, 1) next tokens: argmax of the last position,
-    first index on ties (torch.argmax's rule, as jnp.argmax's)."""
-    return torch.argmax(logits[:, -1], dim=-1)[:, None]
+    first index on ties (torch.argmax's rule, as jnp.argmax's); a DTensor
+    split over the vocab takes each rank's (max, index) and gathers those
+    pairs only (``context.vocab_argmax``)."""
+    last = logits[:, -1]
+    if pctx.is_dtensor(last) and any(p.is_shard(1) for p in last.placements):
+        return pctx.vocab_argmax(last)[:, None]
+    return torch.argmax(last, dim=-1)[:, None]
 
 
 def make_serve_step(arch: ArchDef, cfg, *, impl: Optional[str] = None):

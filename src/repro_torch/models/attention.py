@@ -118,7 +118,7 @@ def _flash(q, k, v, **kw):
     to q's heads where they are not split with them."""
     if not pctx.is_dtensor(q):
         return ops.flash_attention(q, k, v, **kw)
-    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
     mesh = q.device_mesh
     qp = [place if place.is_shard() else Replicate() for place in q.placements]
@@ -133,8 +133,11 @@ def _flash(q, k, v, **kw):
            Replicate() for place in qp]
     lo_h, h_l = pctx.local_range(h, mesh, qp, 1)
     lo_s, _ = pctx.local_range(q.shape[2], mesh, qp, 2)
-    kl = k.redistribute(mesh, kvp).to_local()
-    vl = v.redistribute(mesh, kvp).to_local()
+    # k and v whole over a mesh dim that splits q take gradient from this
+    # rank's queries only: a partial sum over that dim
+    kvg = [Partial() if kp.is_replicate() and p.is_shard() else kp for kp, p in zip(kvp, qp)]
+    kl = k.redistribute(mesh, kvp).to_local(grad_placements=kvg)
+    vl = v.redistribute(mesh, kvp).to_local(grad_placements=kvg)
     if head_dims and not kv_split:  # kv whole: this rank's query heads' own
         idx = torch.arange(lo_h, lo_h + h_l, device=kl.device) // (h // hk)
         kl, vl = kl[:, idx], vl[:, idx]
@@ -163,6 +166,8 @@ def forward(p: Attention, cfg: AttnConfig, x: torch.Tensor, *,
     out = p.o(_merge_heads(out))
     if not return_cache:
         return out
+    if pctx.is_dtensor(k):
+        return out, _placed_cache(k, v, cache_len(cfg, max_cache_len or s_kv))
     cache = make_cache(cfg, b, max_cache_len or s_kv, k.dtype, x.device)
     L = cache["k"].shape[2]
     if s_kv <= L:
@@ -176,6 +181,38 @@ def forward(p: Attention, cfg: AttnConfig, x: torch.Tensor, *,
         cache["v"] = torch.roll(v[:, :, -L:], shift, dims=2).contiguous()
     cache["idx"] = s_kv
     return out, cache
+
+
+def _placed_cache(k, v, L: int) -> dict:
+    """Prefill's cache for DTensor k and v (b, hk, s, d): L slots laid out
+    as ``forward`` lays them, in k's placements (each rank writes its own
+    rows and heads; a slot dim that k splits is gathered first unless
+    s == L)."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    s = k.shape[2]
+    if s == L:
+        return {"k": k.contiguous(), "v": v.contiguous(), "idx": s}
+    mesh = k.device_mesh
+    places = [Replicate() if p.is_partial() or p.is_shard(2) else p for p in k.placements]
+    if s > L:  # ring layout, as forward's, each rank on its own rows and heads
+        def ring(t):
+            local = torch.roll(t.redistribute(mesh, places).to_local()[:, :, -L:], s % L,
+                               dims=2).contiguous()
+            return DTensor.from_local(local, mesh, places, run_check=False)
+
+        return {"k": ring(k), "v": ring(v), "idx": s}
+    shape = (k.shape[0], k.shape[1], L, k.shape[3])
+    local = list(shape)
+    for dim in range(4):
+        local[dim] = pctx.local_range(shape[dim], mesh, places, dim)[1]
+    cache = {"idx": s}
+    for name, t in (("k", k), ("v", v)):
+        slots = torch.zeros(local, dtype=t.dtype, device=t.to_local().device)
+        slots[:, :, :s] = t.redistribute(mesh, places).to_local()
+        cache[name] = DTensor.from_local(slots, mesh, places, run_check=False, shape=shape,
+                                         stride=torch.empty(shape, device="meta").stride())
+    return cache
 
 
 def decode_step(p: Attention, cfg: AttnConfig, x: torch.Tensor, cache: dict, *,
@@ -199,6 +236,12 @@ def decode_step(p: Attention, cfg: AttnConfig, x: torch.Tensor, cache: dict, *,
         slot, q_offset, kv_len = idx % L, 0, min(idx + 1, L)
     else:  # past-only masking comes from kv_len
         slot, q_offset, kv_len = idx, idx, idx + 1
+    if pctx.is_dtensor(cache["k"]):
+        _write_slot(cache["k"], k, slot)
+        _write_slot(cache["v"], v, slot)
+        out = _decode_attention(q, cache["k"], cache["v"], q_offset=q_offset, kv_len=kv_len,
+                                impl=impl)
+        return p.o(_merge_heads(out)), {"k": cache["k"], "v": cache["v"], "idx": idx + 1}
     cache["k"][:, :, slot] = k[:, :, 0]
     cache["v"][:, :, slot] = v[:, :, 0]
     out = ops.flash_attention(q, cache["k"], cache["v"], causal=False, window=None,
@@ -211,6 +254,74 @@ def cross_decode_step(p: Attention, cfg: AttnConfig, x: torch.Tensor, cache: dic
                       impl: Optional[str] = None) -> torch.Tensor:
     """Cross-attention during decode: static KV from the encoder cache."""
     q = _split_heads(p.q(x), cfg.n_heads, cfg.d_head)
-    out = ops.flash_attention(q, cache["k"], cache["v"], causal=False,
-                              kv_len=int(cache["idx"]), impl=impl)
+    if pctx.is_dtensor(cache["k"]):
+        out = _decode_attention(q, cache["k"], cache["v"], q_offset=0,
+                                kv_len=int(cache["idx"]), impl=impl)
+    else:
+        out = ops.flash_attention(q, cache["k"], cache["v"], causal=False,
+                                  kv_len=int(cache["idx"]), impl=impl)
     return p.o(_merge_heads(out))
+
+
+def _write_slot(cache, new, slot: int) -> None:
+    """Write ``new`` (b, hk, 1, d) into slot ``slot`` of a DTensor cache
+    (b, hk, L, d), in place, on the rank whose slice of the slots holds it
+    (each its own batch rows and heads)."""
+    from torch.distributed.tensor import Replicate
+
+    mesh = cache.device_mesh
+    places = [place if place.is_shard(0) or place.is_shard(1) else Replicate()
+              for place in cache.placements]
+    lo, n = pctx.local_range(cache.shape[2], mesh, cache.placements, 2)
+    if lo <= slot < lo + n:
+        local = new.redistribute(mesh, places).to_local()
+        cache.to_local()[:, :, slot - lo] = local[:, :, 0]
+
+
+def _decode_attention(q, k, v, *, q_offset: int, kv_len: int, impl):
+    """One query position (q (b, h, 1, d)) against DTensor caches k, v
+    (b, hk, L, d), each rank on its own batch rows and heads; where the
+    caches split the slots over a mesh dim, each rank attends to its own
+    slots with every query head, and the ranks' parts are merged by their
+    log-sum-exp (a max and two sums all-reduced over that dim)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = k.device_mesh
+    h, hk = q.shape[1], k.shape[1]
+    qp, op, seq_dims = [], [], []
+    for i, place in enumerate(k.placements):
+        if place.is_shard(0):
+            qp.append(Shard(0))
+        elif place.is_shard(1):
+            qp.append(Shard(1))
+        elif place.is_shard(2):
+            qp.append(Replicate())
+            seq_dims.append(i)
+        else:  # whole caches: the query heads keep their split
+            qp.append(Shard(1) if q.placements[i].is_shard(1) else Replicate())
+        op.append(qp[-1])
+    q = pctx.reduce_partial(q).redistribute(mesh, qp)
+    ql, kl, vl = q.to_local(), k.to_local(), v.to_local()
+    head_dims = [i for i, place in enumerate(qp)
+                 if place.is_shard(1) and not k.placements[i].is_shard(1)]
+    if head_dims:  # caches whole over these dims: this rank's heads' groups
+        lo_h, h_l = pctx.local_range(h, mesh, qp, 1)
+        lo_k = pctx.local_range(hk, mesh, k.placements, 1)[0]
+        idx = torch.arange(lo_h, lo_h + h_l, device=kl.device) // (h // hk) - lo_k
+        kl, vl = kl[:, idx], vl[:, idx]
+    lo, n = pctx.local_range(k.shape[2], mesh, k.placements, 2)
+    valid = max(min(kv_len - lo, n), 0)
+    kw = dict(causal=False, q_offset=q_offset - lo, kv_len=valid, impl=impl)
+    if not seq_dims:
+        return DTensor.from_local(ops.flash_attention(ql, kl, vl, **kw), mesh, op,
+                                  run_check=False)
+    out, lse = ops.flash_attention_lse(ql, kl, vl, **kw)  # lse (b, h_l, 1)
+    red = [Partial("max") if i in seq_dims else place for i, place in enumerate(op)]
+    top = pctx.reduce_partial(DTensor.from_local(lse, mesh, red, run_check=False)).to_local()
+    w = torch.where(torch.isfinite(lse), torch.exp(lse - torch.where(
+        torch.isfinite(top), top, 0.0)), 0.0)
+    red = [Partial() if i in seq_dims else place for i, place in enumerate(op)]
+    num = pctx.reduce_partial(DTensor.from_local(out.float() * w[..., None], mesh, red,
+                                                 run_check=False))
+    den = pctx.reduce_partial(DTensor.from_local(w, mesh, red, run_check=False))
+    return (num / torch.clamp_min(den, 1e-30)[..., None]).to(q.dtype)

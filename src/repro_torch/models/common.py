@@ -58,7 +58,7 @@ class Linear(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if pctx.is_dtensor(x):
-            return pctx.local_rows(_affine, x, self.w, self.b)
+            return pctx.local_product(torch.matmul, x, self.w, self.b)
         return _affine(x, self.w, self.b)
 
 
@@ -80,6 +80,8 @@ class Embed(nn.Module):
                                    generator=generator, device=device))
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        if pctx.is_dtensor(self.table):
+            return pctx.vocab_lookup(self.table, ids)
         return self.table[ids]
 
 
@@ -92,7 +94,7 @@ def _matmul_f32(x: torch.Tensor, w_t: torch.Tensor) -> torch.Tensor:
     bf16 values are exact in f32).
     """
     if pctx.is_dtensor(x):
-        return pctx.local_rows(_matmul_f32_of, x, w_t)
+        return pctx.local_product(_matmul_f32_of, x, w_t)
     return _matmul_f32_of(x, w_t)
 
 
@@ -215,11 +217,17 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     """Mean next-token CE in f32, the reference's ``cross_entropy``:
     logits (..., v), labels (...) int; with ``mask``, the masked mean."""
     logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])
-    # the trailing axis goes after the subtraction: a DTensor's gather over
-    # a vocab-sharded axis is a masked partial sum, reduced whole
-    nll = (logz[..., None] - gold)[..., 0]
+    if pctx.is_dtensor(logits):
+        # a vocab-split row's max, sum and gold logit are all-reduced where
+        # they are made, not gathered or scattered over the sequence
+        top = pctx.reduce_partial(logits.amax(dim=-1, keepdim=True)).detach()
+        total = pctx.reduce_partial(torch.exp(logits - top).sum(dim=-1, keepdim=True))
+        logz = torch.log(total) + top
+        nll = (logz - pctx.reduce_partial(gold))[..., 0]
+    else:
+        # the trailing axis goes after the subtraction, as the reference
+        nll = (torch.logsumexp(logits, dim=-1)[..., None] - gold)[..., 0]
     if mask is not None:
         nll = nll * mask
         return nll.sum() / torch.clamp_min(mask.sum(), 1.0)

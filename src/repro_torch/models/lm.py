@@ -360,6 +360,18 @@ def init_caches(cfg: LMConfig, batch: int, max_len: int, device) -> list:
     return layers + shared
 
 
+def set_cache_position(caches, idx: int):
+    """Caches marked as holding ``idx`` valid tokens (the dry run's decode
+    at position ``idx``): the same tree, with every ``idx`` entry set to
+    ``idx`` and the tensors shared, not copied."""
+    if isinstance(caches, dict):
+        return {k: idx if k == "idx" else set_cache_position(v, idx)
+                for k, v in caches.items()}
+    if isinstance(caches, (list, tuple)):
+        return type(caches)(set_cache_position(c, idx) for c in caches)
+    return caches
+
+
 def decode_step(cfg: LMConfig, model: LM, caches: list, token: torch.Tensor, *,
                 impl: Optional[str] = None):
     """token (b, 1) -> (new caches, logits (b, 1, vocab) f32). Attention

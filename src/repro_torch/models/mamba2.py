@@ -75,9 +75,31 @@ def init(cfg: Mamba2Config, dtype, *, generator: torch.Generator, device) -> Mam
 
 
 def _split_proj(cfg: Mamba2Config, zxbcdt: torch.Tensor):
-    di = cfg.d_inner
-    return (zxbcdt[..., :di], zxbcdt[..., di:di + cfg.conv_channels],
-            zxbcdt[..., di + cfg.conv_channels:])
+    """(z, xbc, dt) of the input projection; on DTensors with in_proj's
+    columns split over the model axis, each split in even chunks of its
+    own (xbc as ``conv_w``'s channels), so that every rank goes on with
+    its own heads (``pctx.regroup_columns``)."""
+    return pctx.regroup_columns([zxbcdt], [cfg.d_inner, cfg.conv_channels, cfg.n_heads])
+
+
+def _split_conv(cfg: Mamba2Config, xbc: torch.Tensor):
+    """(x, B, C) of the conv's output; on DTensors x split by heads as z
+    is, B and C whole on every rank (each rank's heads read their
+    groups)."""
+    gn = cfg.n_groups * cfg.d_state
+    xs, B, C = pctx.regroup_columns([xbc], [cfg.d_inner, gn, gn])
+    return (xs, *map(_whole_last, (B, C)))
+
+
+def _whole_last(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor ``t`` gathered over the mesh dims that split its last dim;
+    anything else as it is."""
+    if not pctx.is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate
+
+    return t.redistribute(t.device_mesh, [Replicate() if p.is_shard(t.ndim - 1) else p
+                                          for p in t.placements])
 
 
 def _causal_conv(w: torch.Tensor, b: torch.Tensor, xbc: torch.Tensor,
@@ -100,7 +122,11 @@ def _causal_conv(w: torch.Tensor, b: torch.Tensor, xbc: torch.Tensor,
 def _gated_rmsnorm(scale: torch.Tensor, y: torch.Tensor, z: torch.Tensor,
                    eps: float = 1e-6) -> torch.Tensor:
     yf = y.float() * torch.nn.functional.silu(z.float())
-    ms = (yf * yf).mean(dim=-1, keepdim=True)
+    sq = yf * yf
+    if pctx.is_dtensor(sq):  # split over the channels: a partial sum, all-reduced here
+        ms = pctx.reduce_partial(sq.sum(dim=-1, keepdim=True)) / sq.shape[-1]
+    else:
+        ms = sq.mean(dim=-1, keepdim=True)
     return (yf * torch.rsqrt(ms + eps) * scale.float()).to(y.dtype)
 
 
@@ -111,7 +137,7 @@ def _ssd(x, dt, A, B, C, **kw):
     head."""
     if not pctx.is_dtensor(x):
         return ops.ssd_scan(x, dt, A, B, C, **kw)
-    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
     mesh = x.device_mesh
     xp = [Shard(0) if place.is_shard(0) else Shard(2) if place.is_shard(2) else Replicate()
@@ -120,29 +146,65 @@ def _ssd(x, dt, A, B, C, **kw):
     bcp = [Shard(0) if place.is_shard(0) else Replicate() for place in xp]
     h, g = x.shape[2], B.shape[2]
     lo_h, h_l = pctx.local_range(h, mesh, xp, 2)
-    Bl, Cl = (t.redistribute(mesh, bcp).to_local() for t in (B, C))
+    # B and C whole over a mesh dim that splits the heads take gradient
+    # from this rank's heads only: a partial sum over that dim
+    bcg = [Partial() if bp.is_replicate() and p.is_shard() else bp for bp, p in zip(bcp, xp)]
+    Bl, Cl = (t.redistribute(mesh, bcp).to_local(grad_placements=bcg) for t in (B, C))
     if h_l < h:  # one group a local head
         idx = torch.arange(lo_h, lo_h + h_l, device=Bl.device) // (h // g)
         Bl, Cl = Bl[:, :, idx], Cl[:, :, idx]
     out = ops.ssd_scan(x.redistribute(mesh, xp).to_local(),
                        dt.redistribute(mesh, xp).to_local(),
-                       A.redistribute(mesh, ap).to_local(), Bl, Cl, **kw)
+                       A.redistribute(mesh, ap).to_local(grad_placements=[
+                           Partial() if a.is_replicate() and p.is_shard() else a
+                           for a, p in zip(ap, xp)]), Bl, Cl, **kw)
     if not kw.get("return_state"):
         return DTensor.from_local(out, mesh, xp)
     state_p = [Shard(1) if place.is_shard(2) else place for place in xp]  # (b, h, n, p)
     return DTensor.from_local(out[0], mesh, xp), DTensor.from_local(out[1], mesh, state_p)
 
 
+def _ssm_step(hstate, x, dt, A, B, C):
+    """``ops.ssm_decode_step``; on DTensors each rank steps its own batch
+    rows and heads (the state (b, h, n, p) as the cache rules split it),
+    with its heads' groups of B and C, as ``_ssd`` scans them."""
+    if not pctx.is_dtensor(hstate):
+        return ops.ssm_decode_step(hstate, x, dt, A, B, C)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = hstate.device_mesh
+    sp = [p if p.is_shard(0) or p.is_shard(1) else Replicate() for p in hstate.placements]
+    xp = sp  # x (b, h, p) and dt (b, h) split as the state's (b, h)
+    ap = [Shard(0) if p.is_shard(1) else Replicate() for p in sp]
+    bcp = [Shard(0) if p.is_shard(0) else Replicate() for p in sp]
+    h, g = hstate.shape[1], B.shape[1]
+    lo_h, h_l = pctx.local_range(h, mesh, sp, 1)
+    Bl, Cl = (pctx.reduce_partial(t).redistribute(mesh, bcp).to_local() for t in (B, C))
+    if h_l < h:  # the groups of this rank's heads, one a local head
+        idx = torch.arange(lo_h, lo_h + h_l, device=Bl.device) // (h // g)
+        Bl, Cl = Bl[:, idx], Cl[:, idx]
+    state, y = ops.ssm_decode_step(
+        hstate.redistribute(mesh, sp).to_local(),
+        pctx.reduce_partial(x).redistribute(mesh, xp).to_local(),
+        pctx.reduce_partial(dt).redistribute(mesh, xp).to_local(),
+        A.redistribute(mesh, ap).to_local(), Bl, Cl)
+    return (DTensor.from_local(state, mesh, sp, run_check=False),
+            DTensor.from_local(y, mesh, xp, run_check=False))
+
+
 def forward(p: Mamba2, cfg: Mamba2Config, x: torch.Tensor, *, return_state: bool = False,
             impl: Optional[str] = None):
     """x (b, s, d_model) -> (b, s, d_model) [, state {conv, ssm}]."""
+    local = pctx.local_rows_of(p, x)
+    if local is not None:  # whole weights: each rank its own rows
+        lp, to_local, wrap = local
+        return wrap(forward(lp, cfg, to_local(x), return_state=return_state, impl=impl))
     b, s, _ = x.shape
     g, n, h, pd = cfg.n_groups, cfg.d_state, cfg.n_heads, cfg.head_dim
     z, xbc, dt_raw = _split_proj(cfg, p.in_proj(x))
     xbc, conv_state = _causal_conv(p.conv_w, p.conv_b, xbc)
-    xs = xbc[..., :cfg.d_inner]
-    Bc = xbc[..., cfg.d_inner:cfg.d_inner + g * n].reshape(b, s, g, n)
-    Cc = xbc[..., cfg.d_inner + g * n:].reshape(b, s, g, n)
+    xs, Bc, Cc = _split_conv(cfg, xbc)
+    Bc, Cc = Bc.reshape(b, s, g, n), Cc.reshape(b, s, g, n)
     dt = torch.nn.functional.softplus(dt_raw.float() + p.dt_bias)  # (b, s, h)
     A = -torch.exp(p.A_log)
     xh = xs.reshape(b, s, h, pd)
@@ -169,17 +231,20 @@ def make_state(cfg: Mamba2Config, batch: int, dtype, device) -> dict:
 
 def decode_step(p: Mamba2, cfg: Mamba2Config, x: torch.Tensor, state: dict):
     """x (b, 1, d_model); state {conv (b, d_conv-1, ch), ssm (b, h, n, p)}."""
+    local = pctx.local_rows_of(p, x)
+    if local is not None:  # whole weights: each rank its own rows
+        lp, to_local, wrap = local
+        return wrap(decode_step(lp, cfg, to_local(x), to_local(state)))
     b = x.shape[0]
     g, n, h, pd = cfg.n_groups, cfg.d_state, cfg.n_heads, cfg.head_dim
     z, xbc, dt_raw = _split_proj(cfg, p.in_proj(x))
     xbc, conv_state = _causal_conv(p.conv_w, p.conv_b, xbc, prev=state["conv"])
-    xs = xbc[..., :cfg.d_inner]
-    Bc = xbc[..., cfg.d_inner:cfg.d_inner + g * n].reshape(b, g, n)
-    Cc = xbc[..., cfg.d_inner + g * n:].reshape(b, g, n)
+    xs, Bc, Cc = _split_conv(cfg, xbc)
+    Bc, Cc = Bc.reshape(b, g, n), Cc.reshape(b, g, n)
     dt = torch.nn.functional.softplus(dt_raw[:, 0].float() + p.dt_bias)  # (b, h)
     A = -torch.exp(p.A_log)
     xh = xs.reshape(b, h, pd)
-    ssm_new, y = ops.ssm_decode_step(state["ssm"], xh, dt, A, Bc, Cc)
+    ssm_new, y = _ssm_step(state["ssm"], xh, dt, A, Bc, Cc)
     y = y + p.D[None, :, None] * xh.float()
     y = y.reshape(b, 1, cfg.d_inner).to(x.dtype)
     y = _gated_rmsnorm(p.norm_scale, y, z)

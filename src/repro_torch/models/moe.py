@@ -26,6 +26,7 @@ import torch
 from torch import nn
 
 from repro_torch.models import common
+from repro_torch.parallel import context as pctx
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,6 +124,26 @@ def combine_weights(cfg: MoEConfig, probs: torch.Tensor):
     return combine.reshape(b, s, E, C), gate_idx
 
 
+def _expert_split(p: MoE, combine: torch.Tensor) -> torch.Tensor:
+    """``combine`` (b, s, E * C): a DTensor's (expert, slot) dim split
+    with the experts (whole experts a rank where the rules split them), so
+    that each rank dispatches to, and combines from, its own experts only;
+    the combine product is then a partial sum over them, all-reduced.
+    Anything else is returned as it is."""
+    w = p.experts.up.w
+    if not (pctx.is_dtensor(combine) and pctx.is_dtensor(w)):
+        return combine
+    from torch.distributed.tensor import Shard
+
+    places = [Shard(2) if wp.is_shard(0) else cp
+              for wp, cp in zip(w.placements, combine.placements)]
+    return combine.redistribute(combine.device_mesh, places)
+
+
+def _bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return pctx.local_bmm(a, b) if pctx.is_dtensor(a) else torch.bmm(a, b)
+
+
 def forward(p: MoE, cfg: MoEConfig, x: torch.Tensor):
     """x (b, s, d) -> (y, aux) with aux = {load_balance_loss, router_z_loss}."""
     b, s, d = x.shape
@@ -132,14 +153,14 @@ def forward(p: MoE, cfg: MoEConfig, x: torch.Tensor):
     logits = p.router(x.float())  # (b, s, E)
     probs = torch.softmax(logits, dim=-1)
     combine, gate_idx = combine_weights(cfg, probs)
-    combine = combine.reshape(b, s, E * C)
+    combine = _expert_split(p, combine.reshape(b, s, E * C))
     dispatch = (combine > 0).to(x.dtype)
 
-    expert_in = torch.bmm(dispatch.transpose(1, 2), x)  # (b, E*C, d)
+    expert_in = _bmm(dispatch.transpose(1, 2), x)  # (b, E*C, d)
     expert_in = expert_in.reshape(b, E, C, d).transpose(0, 1).reshape(E, b * C, d)
     expert_out = p.experts(expert_in)  # (E, b*C, d)
     expert_out = expert_out.reshape(E, b, C, d).transpose(0, 1).reshape(b, E * C, d)
-    y = torch.bmm(combine.to(x.dtype), expert_out)  # (b, s, d)
+    y = _bmm(combine.to(x.dtype), expert_out)  # (b, s, d)
 
     # aux losses (GShard §2.2 / ST-MoE z-loss)
     frac_tokens = torch.nn.functional.one_hot(gate_idx[..., 0], E).float().mean(dim=(0, 1))

@@ -96,6 +96,8 @@ def update(cfg: AdamWConfig, params: Dict[str, torch.Tensor],
     state["step"].add_(1)
     step = state["step"]
     lr = schedule(cfg, step)
+    if any(_is_dtensor(g) for g in grads.values()):
+        grads = {k: _as_moment(g, state["m"][k]) for k, g in grads.items()}
     gnorm = global_norm(grads)
     scale = None if cfg.clip_norm is None else _clip_scale(gnorm, cfg.clip_norm)
     stepf = step.to(torch.float32)
@@ -114,5 +116,20 @@ def update(cfg: AdamWConfig, params: Dict[str, torch.Tensor],
         delta = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
         pf = p.to(torch.float32)
         delta.add_(cfg.weight_decay * pf)
-        p.copy_(pf - lr * delta)
+        new = pf - lr * delta
+        if _is_dtensor(p):  # the ZeRO-1 shards' update gathered in p's dtype
+            new = new.to(p.dtype)
+        p.copy_(new)
     return {"lr": lr, "grad_norm": gnorm}
+
+
+def _is_dtensor(t) -> bool:
+    return hasattr(t, "placements")
+
+
+def _as_moment(g: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """A DTensor gradient in its moment's placements (a partial sum over
+    the data axis reduce-scattered onto ZeRO-1's shards); else ``g``."""
+    if not _is_dtensor(g) or not _is_dtensor(m) or tuple(g.placements) == tuple(m.placements):
+        return g
+    return g.redistribute(m.device_mesh, m.placements)

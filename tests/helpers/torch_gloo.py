@@ -229,4 +229,60 @@ def elastic(workdir: str) -> dict:
             "plan": ctl.plan.summary(), "ckpt_steps": sorted(os.listdir(ckpt_dir))}
 
 
-JOBS = {"train": train, "remesh": remesh, "constrain_seq": constrain_seq, "elastic": elastic}
+def tp_step(workdir: str, arch_id: str, shape, seq: int, extra: int) -> dict:
+    """One arch at SMOKE width with its weights placed on a ``shape``
+    mesh by the partition rules: the loss and every gradient of
+    ``loss_and_grads`` on the batch of sequence ``seq``, then a prefill of
+    its tokens into caches of ``seq + extra`` slots, brought to the cache
+    rules' placements, and one greedy decode step. Rank 0 writes the
+    gradients and the step's logits (whole) to ``tp_<arch>.npz``."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import steps
+    from repro_torch.parallel import sharding as shd
+
+    arch = get_arch(arch_id)
+    cfg = arch.smoke
+    model = _model(arch, cfg, workdir)
+    batch = _batch(workdir, arch_id, seq)
+    mesh = mesh_mod.make_mesh(tuple(shape), ("data", "model"), "cpu")
+    cell = ShapeCell("t", seq, batch["tokens"].shape[0], "train")
+    host = {k: v.detach().clone() for k, v in model.named_parameters()}
+    specs = shd.param_specs(host, arch, mesh)
+    steps.assign(model, {k: distribute_tensor(v, mesh, shd.placements(specs[k], mesh))
+                         for k, v in host.items()})
+    steps.trainable(model)
+    placed = {k: distribute_tensor(v, mesh, shd.placements(sp, mesh))
+              for (k, v), sp in zip(batch.items(), shd.batch_specs(batch, cell, mesh).values())}
+    with steps.activation_policy(arch, cell, mesh):
+        loss, _, grads = steps.loss_and_grads(arch, cfg, model, placed)
+        model.requires_grad_(False)
+        with torch.no_grad():
+            caches, _ = arch.prefill(cfg, model, {"tokens": placed["tokens"]},
+                                     max_cache_len=seq + extra)
+            cspec = shd.cache_specs(caches, arch, cell, mesh)
+
+            def to_spec(t, sp):
+                return t.redistribute(mesh, shd.placements(sp, mesh)) if hasattr(
+                    t, "redistribute") else t
+
+            caches = [{k: to_spec(v, cspec[i][k]) for k, v in c.items()}
+                      for i, c in enumerate(caches)]
+            token = torch.full((batch["tokens"].shape[0], 1), 3, dtype=torch.long)
+            token = distribute_tensor(token, mesh, shd.placements(
+                shd.batch_specs({"t": token}, cell, mesh)["t"], mesh))
+            caches, step_logits = arch.decode_step(cfg, model, caches, token)
+            placements = sorted({repr(tuple(c["k"].placements)) for c in caches if "k" in c})
+    whole = {f"grad.{k}": g.full_tensor().numpy() for k, g in grads.items()}
+    whole["logits"] = step_logits.full_tensor().numpy()
+    if dist.get_rank() == 0:
+        np.savez(os.path.join(workdir, f"tp_{arch_id}.npz"), **whole)
+    return {"loss": float(loss.full_tensor()), "cache_placements": placements,
+            "tokens": steps.greedy(step_logits).full_tensor()[:, 0].tolist()}
+
+
+JOBS = {"train": train, "remesh": remesh, "constrain_seq": constrain_seq, "elastic": elastic,
+        "tp_step": tp_step}

@@ -117,3 +117,74 @@ def test_shutdown_leaves_no_process_of_the_world(tmp_path):
     torch_gloo.shutdown()
     assert helpers_running() == []
     torch_gloo.shutdown()  # nothing left to stop
+
+
+# the tensor-parallel step on a (2, 2) mesh against the same port on one
+# process: each arch takes a path of its own through the products run on
+# each rank's shards (parallel/context.py): gemma3-12b the vocab-parallel
+# embedding and cross-entropy and head-split caches; granite-20b replicated
+# K/V and caches split over the sequence (a decode step merged by
+# log-sum-exp); granite-moe-1b-a400m the experts' dispatch and combine;
+# starcoder2-3b a row-parallel product over heads gathered whole (3 heads,
+# 2 ranks); mamba2-130m the SSD scan on its heads
+TP_ARCHS = ("gemma3-12b", "granite-20b", "granite-moe-1b-a400m", "starcoder2-3b",
+            "mamba2-130m")
+# f32 sums in other orders: gloo's reductions of partial sums
+TP_REL = 1e-5
+
+
+def _stage_port(workdir, arch_id: str, seq: int, batch: int = 8, seed: int = SEED) -> None:
+    """The port's SMOKE weights drawn from ``seed`` and a batch of
+    sequence ``seq``, written as ``stage`` writes them (no reference
+    needed: both sides of the comparison are the port)."""
+    import torch
+
+    cfg = get_arch(arch_id).smoke
+    model = get_arch(arch_id).init(torch.Generator().manual_seed(seed), cfg, device="cpu")
+    np.savez(workdir / f"weights_{arch_id}.npz",
+             **{k: v.float().numpy() for k, v in model.state_dict().items()})
+    rng = np.random.default_rng(seed)
+    np.savez(workdir / f"b{seq}_{arch_id}.npz",
+             tokens=rng.integers(0, cfg.vocab, (batch, seq)).astype(np.int32),
+             labels=rng.integers(0, cfg.vocab, (batch, seq)).astype(np.int32))
+
+
+def _plain_step(arch_id, workdir, seq, extra):
+    import torch
+
+    from repro_torch.launch import steps
+
+    arch = get_arch(arch_id)
+    cfg = arch.smoke
+    model = torch_gloo._model(arch, cfg, str(workdir))
+    batch = torch_gloo._batch(str(workdir), arch_id, seq)
+    steps.trainable(model)
+    loss, _, grads = steps.loss_and_grads(arch, cfg, model, batch)
+    model.requires_grad_(False)
+    with torch.no_grad():
+        caches, _ = arch.prefill(cfg, model, {"tokens": batch["tokens"]},
+                                 max_cache_len=seq + extra)
+        token = torch.full((batch["tokens"].shape[0], 1), 3, dtype=torch.long)
+        _, logits = arch.decode_step(cfg, model, caches, token)
+    return (float(loss), {k: g.numpy() for k, g in grads.items()}, logits.numpy(),
+            steps.greedy(logits)[:, 0].tolist())
+
+
+def test_tensor_parallel_step_matches_one_process(tmp_path):
+    for arch_id in TP_ARCHS:
+        _stage_port(tmp_path, arch_id, 16)
+    outs = torch_gloo.spawn(4, tmp_path, [("tp_step", (a, (2, 2), 16, 4)) for a in TP_ARCHS],
+                            timeout=SPAWN_TIMEOUT_S)
+    assert all(out == outs[0] for out in outs)
+    for arch_id, got in zip(TP_ARCHS, outs[0]):
+        loss, grads, logits, tokens = _plain_step(arch_id, tmp_path, 16, 4)
+        assert got["loss"] == pytest.approx(loss, rel=TP_REL), arch_id
+        assert got["tokens"] == tokens, arch_id  # the vocab-split greedy pick
+        with np.load(tmp_path / f"tp_{arch_id}.npz") as z:
+            for k, g in grads.items():
+                scale = max(float(np.abs(g).max()), 1e-30)
+                assert np.abs(z[f"grad.{k}"] - g).max() <= TP_REL * scale, (arch_id, k)
+            scale = float(np.abs(logits).max())
+            assert np.abs(z["logits"] - logits).max() <= TP_REL * scale, arch_id
+    # granite-20b's one KV head leaves its caches split over the sequence
+    assert any("Shard(dim=2)" in p for p in outs[0][1]["cache_placements"])

@@ -14,7 +14,6 @@ hypothesis test over ``tmp_path``; here it runs on fixed seeds, two for
 each fault kind. Crash recovery is ``test_torch_service_recovery.py``.
 """
 
-import ast
 import json
 import math
 import os
@@ -30,6 +29,8 @@ from repro.fleet import service as ref_service
 from repro.fleet.service import core as ref_core
 from repro.fleet.service import events as ref_ev
 from repro_torch import fleet
+from repro_torch.analysis import core as analysis_core
+from repro_torch.analysis import rules as analysis_rules
 from repro_torch.core import svr as svr_mod
 from repro_torch.core.engine import ENGINE_FIT_KW
 from repro_torch.core.node_sim import F_MAX, FREQ_GRID, PROFILES
@@ -505,26 +506,13 @@ def test_kill_at_raises_service_killed_with_resume_coordinates(tmp_path):
 # nothing on the service path reads a wall clock
 # ---------------------------------------------------------------------------
 
-WALL_CLOCKS = {
-    ("time", "time"), ("time", "perf_counter"), ("time", "monotonic"),
-    ("time", "time_ns"), ("time", "perf_counter_ns"), ("time", "monotonic_ns"),
-    ("datetime", "now"), ("datetime", "utcnow"), ("datetime", "today"),
-}
+SIM_CLOCK = analysis_rules.RULES["sim-clock-purity"]
 
 
-def _wall_clock_reads(path):
-    tree = ast.parse(open(path).read(), filename=path)
-    found = []
-    for node in ast.walk(tree):
-        if isinstance(node, ast.ImportFrom) and node.module in ("time", "datetime"):
-            found += [(node.lineno, f"from {node.module} import {a.name}")
-                      for a in node.names if (node.module, a.name) in WALL_CLOCKS
-                      or a.name == "datetime"]
-        elif isinstance(node, ast.Attribute):
-            base = node.value
-            name = base.attr if isinstance(base, ast.Attribute) else getattr(base, "id", None)
-            if (name, node.attr) in WALL_CLOCKS:
-                found.append((node.lineno, f"{name}.{node.attr}"))
+def _wall_clock_reads(src, path):
+    """The port's repro-lint ``sim-clock-purity`` findings in ``src``, as
+    if it lived at the repo-relative ``path``."""
+    found, _ = analysis_core.analyze_source(src, path, [SIM_CLOCK])
     return found
 
 
@@ -533,12 +521,16 @@ SERVICE_DIR = os.path.join(REPO, "src", "repro_torch", "fleet", "service")
 
 @pytest.mark.parametrize("name", sorted(f for f in os.listdir(SERVICE_DIR) if f.endswith(".py")))
 def test_service_reads_no_wall_clock(name):
-    assert _wall_clock_reads(os.path.join(SERVICE_DIR, name)) == []
+    rel = f"src/repro_torch/fleet/service/{name}"
+    assert SIM_CLOCK.applies(rel)
+    with open(os.path.join(REPO, rel)) as f:
+        assert [x.render() for x in _wall_clock_reads(f.read(), rel)] == []
 
 
-def test_wall_clock_check_sees_each_form(tmp_path):
-    bad = tmp_path / "bad.py"
-    bad.write_text("import time, datetime\nfrom time import perf_counter\n"
-                   "a = time.monotonic()\nb = datetime.datetime.now()\n")
-    assert [s for _, s in _wall_clock_reads(str(bad))] == [
-        "from time import perf_counter", "time.monotonic", "datetime.now"]
+def test_wall_clock_check_sees_each_form():
+    bad = ("import time, datetime\nfrom time import perf_counter\n"
+           "a = time.monotonic()\nb = datetime.datetime.now()\nc = perf_counter()\n")
+    found = _wall_clock_reads(bad, "src/repro_torch/fleet/service/bad.py")
+    assert [(x.line, x.message.split("()")[0]) for x in found] == [
+        (3, "wall-clock read time.monotonic"), (4, "wall-clock read datetime.datetime.now"),
+        (5, "wall-clock read perf_counter")]
