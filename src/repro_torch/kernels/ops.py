@@ -18,7 +18,9 @@ Gradients: ``flash_attention`` and ``ssd_scan`` run inside a
 recomputes (out, lse) through the same dispatch as its forward (the
 kernel on the card) and then runs the plain chunked backward; the SSD
 backward is the VJP of the plain scan. Where no input needs a gradient
-(serving), the Function only runs its forward. The kernels stay
+(serving), the Function only runs its forward. Under a recorder
+(``repro_torch.obs``) each backward is a span, ``attention.bwd`` or
+``ssd.bwd``. The kernels stay
 forward-only, as the reference's do. A kernel
 launched through ctypes into ``torch.empty`` outputs has no ``grad_fn``:
 called bare under autograd it would leave every weight before it without
@@ -32,6 +34,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.int8_codec import int8_dequantize_cuda, int8_quantize_cuda
@@ -171,10 +174,11 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v = ctx.saved_tensors
-        out, lse = _flash_forward(q, k, v, ctx.kw, ctx.impl, return_lse=True)
-        dq, dk, dv = ref.flash_attention_bwd_ref(q, k, v, out, lse, g.to(q.dtype), **ctx.kw,
-                                                 **_PLAIN_BLOCKS)
+        with obs.span("attention.bwd", cat="train"):
+            q, k, v = ctx.saved_tensors
+            out, lse = _flash_forward(q, k, v, ctx.kw, ctx.impl, return_lse=True)
+            dq, dk, dv = ref.flash_attention_bwd_ref(q, k, v, out, lse, g.to(q.dtype),
+                                                     **ctx.kw, **_PLAIN_BLOCKS)
         return dq, dk, dv, None, None
 
 
@@ -250,17 +254,18 @@ class _SSDScan(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *grads):
-        inputs = [None if t is None else t.detach().requires_grad_(True)
-                  for t in ctx.saved_tensors]
-        with torch.enable_grad():
-            out = ref.ssd_scan_ref(*inputs[:5], chunk=ctx.chunk, h0=inputs[5],
-                                   return_state=ctx.return_state)
-        outs = out if ctx.return_state else (out,)
-        pairs = [(o, g) for o, g in zip(outs, grads) if g is not None]
-        wrt = [t for t in inputs if t is not None]
-        d = iter(torch.autograd.grad([o for o, _ in pairs], wrt, [g for _, g in pairs],
-                                     allow_unused=True))
-        return (*(None if t is None else next(d) for t in inputs), None, None, None)
+        with obs.span("ssd.bwd", cat="train"):
+            inputs = [None if t is None else t.detach().requires_grad_(True)
+                      for t in ctx.saved_tensors]
+            with torch.enable_grad():
+                out = ref.ssd_scan_ref(*inputs[:5], chunk=ctx.chunk, h0=inputs[5],
+                                       return_state=ctx.return_state)
+            outs = out if ctx.return_state else (out,)
+            pairs = [(o, g) for o, g in zip(outs, grads) if g is not None]
+            wrt = [t for t in inputs if t is not None]
+            d = iter(torch.autograd.grad([o for o, _ in pairs], wrt, [g for _, g in pairs],
+                                         allow_unused=True))
+            return (*(None if t is None else next(d) for t in inputs), None, None, None)
 
 
 ssm_decode_step = ref.ssm_decode_step  # the recurrent step is plain torch, as in the reference

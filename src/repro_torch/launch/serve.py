@@ -9,9 +9,7 @@ Weights are random, drawn from ``torch.Generator(device).manual_seed(seed)``
 on the device; prompts (and whisper's encoder frames after them) come from
 ``numpy.random.default_rng(seed)`` as in the reference. It prints the
 prefill time (ms) and the decode rate (tokens/s), with the host clock
-around work that ends in a device synchronisation. The queue counter is
-the reference's micro continuous-batching stand-in: a slot "finishes" on
-a fixed schedule and a queued prompt is counted as swapped in.
+around work that ends in a device synchronisation.
 """
 
 from __future__ import annotations
@@ -86,10 +84,9 @@ class ServeRun:
     step_logits: List[torch.Tensor]  # gen - 1 of (b, 1, vocab) f32
     prefill_s: float
     decode_s: float
-    swapped_in: int
 
 
-def run(arch, cfg, model, prompts: np.ndarray, gen: int, *, queue: int = 4,
+def run(arch, cfg, model, prompts: np.ndarray, gen: int, *,
         impl: Optional[str] = None, forced: Optional[torch.Tensor] = None,
         frames=None, images=None) -> ServeRun:
     """Prefill ``prompts`` and decode ``gen`` tokens greedily.
@@ -121,21 +118,16 @@ def run(arch, cfg, model, prompts: np.ndarray, gen: int, *, queue: int = 4,
         t_prefill = time.perf_counter() - t0
         prefill_logits = logits
         generated, step_logits = [tok], []
-        swapped, done = queue, 0
         t0 = time.perf_counter()
         for i in range(gen - 1):
             feed = tok if forced is None else forced[:, i:i + 1]
             caches, tok, logits = serve_step(model, caches, feed)
             generated.append(tok)
             step_logits.append(logits)
-            if swapped > 0 and (i + 1) % max(gen // max(swapped, 1), 1) == 0:
-                swapped -= 1
-                done += 1
         _sync(dev)
         t_decode = time.perf_counter() - t0
     return ServeRun(tokens=torch.cat(generated, dim=1), prefill_logits=prefill_logits,
-                    step_logits=step_logits, prefill_s=t_prefill, decode_s=t_decode,
-                    swapped_in=done)
+                    step_logits=step_logits, prefill_s=t_prefill, decode_s=t_decode)
 
 
 def main(argv=None) -> ServeRun:
@@ -145,7 +137,6 @@ def main(argv=None) -> ServeRun:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
-    ap.add_argument("--queue", type=int, default=4, help="queued prompts")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None, help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
@@ -153,7 +144,7 @@ def main(argv=None) -> ServeRun:
     arch, cfg, model = build(args.arch, smoke=args.smoke, seed=args.seed,
                              device=args.device)
     prompts, frames = make_inputs(arch, cfg, args.batch, args.prompt_len, args.seed)
-    out = run(arch, cfg, model, prompts, args.gen, queue=args.queue, frames=frames)
+    out = run(arch, cfg, model, prompts, args.gen, frames=frames)
     tps = (args.gen * args.batch) / max(out.decode_s, 1e-9)
     dev = next(model.parameters()).device
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
@@ -161,7 +152,6 @@ def main(argv=None) -> ServeRun:
     obs.log(f"prefill: {out.prefill_s * 1e3:.1f} ms for {args.batch}x{args.prompt_len} "
             f"tokens")
     obs.log(f"decode:  {args.gen} steps in {out.decode_s * 1e3:.1f} ms -> {tps:.1f} tok/s")
-    obs.log(f"swapped-in queued prompts: {out.swapped_in}")
     obs.log(f"sample tokens: {out.tokens[0, :12].tolist()}")
     return out
 

@@ -27,6 +27,7 @@ as the reference's pipeline draws them.
 from __future__ import annotations
 
 import argparse
+import itertools
 import os
 import tempfile
 from typing import Optional
@@ -52,18 +53,26 @@ def make_compressed_dp_step(arch, cfg, opt_cfg, group, *, impl: Optional[str] = 
     each rank takes its contiguous slice of the batch, then loss and
     gradients, compression, the mean of the loss over the group, AdamW.
     ``step(model, opt_state, residuals, batch) -> (model, opt_state,
-    residuals, metrics {loss, lr, grad_norm})``."""
+    residuals, metrics {loss, lr, grad_norm})``. Under a recorder each
+    call is a ``train.step`` span (``args.step`` counts the calls) around
+    ``train.loss_and_grads``, ``train.compress`` and ``train.adamw``."""
+    count = itertools.count()
 
     def step(model, opt_state, residuals, batch):
-        world, rank = dist.get_world_size(group), dist.get_rank(group)
-        local = {k: v.chunk(world)[rank] for k, v in batch.items()}
-        params = steps_mod.trainable(model)
-        loss, _, grads = steps_mod.loss_and_grads(arch, cfg, model, local, impl=impl)
-        grads, residuals = compress.compressed_grad_tree(grads, residuals, group, impl=impl)
-        loss = loss.clone()
-        dist.all_reduce(loss, group=group)
-        loss = loss / world
-        metrics = adamw.update(opt_cfg, params, grads, opt_state)
+        with obs.span("train.step", cat="train", step=next(count)):
+            world, rank = dist.get_world_size(group), dist.get_rank(group)
+            local = {k: v.chunk(world)[rank] for k, v in batch.items()}
+            params = steps_mod.trainable(model)
+            with obs.span("train.loss_and_grads", cat="train"):
+                loss, _, grads = steps_mod.loss_and_grads(arch, cfg, model, local, impl=impl)
+            with obs.span("train.compress", cat="train"):
+                grads, residuals = compress.compressed_grad_tree(grads, residuals, group,
+                                                                 impl=impl)
+            loss = loss.clone()
+            dist.all_reduce(loss, group=group)
+            loss = loss / world
+            with obs.span("train.adamw", cat="train"):
+                metrics = adamw.update(opt_cfg, params, grads, opt_state)
         return model, opt_state, residuals, {"loss": loss, **metrics}
 
     return step

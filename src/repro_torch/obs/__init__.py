@@ -1,11 +1,31 @@
-"""repro_torch.obs — the fleet flight recorder.
+"""repro_torch.obs — the flight recorder of the fleet and the model path.
 
-Low-overhead observability for the planning/fleet stack: structured
-spans and instant events (:mod:`repro_torch.obs.trace`), a counters/gauges/
-histograms registry (:mod:`repro_torch.obs.metrics`), a per-node Gantt
-timeline reconstructed from scheduler records
+Low-overhead observability for the planning/fleet stack and the training
+step: structured spans and instant events (:mod:`repro_torch.obs.trace`),
+a counters/gauges/histograms registry (:mod:`repro_torch.obs.metrics`), a
+per-node Gantt timeline reconstructed from scheduler records
 (:mod:`repro_torch.obs.timeline`), and one sanctioned diagnostic emitter
 (:mod:`repro_torch.obs.log`).
+
+Spans are stamped on the clock of ``torch.profiler``'s host events
+(``trace.profiler_clock_ns``, the wall clock in integer ns). Exported
+``ts``/``dur`` are µs from the recorder's epoch, and ``export_run``'s
+``meta.epoch_ns`` is that epoch on the profiler's clock, so
+``epoch_ns + ts * 1e3`` puts a span on the axis of a profiled stretch's
+runtime calls and kernels. Each span's ``args`` hold its ``id`` and its
+``parent`` (the id of the span that caused it), and the spans of one
+training step share its ``step``.
+
+The model path's spans (category ``train``): ``train.step`` around one
+call of ``launch.train.make_compressed_dp_step``'s step, with ``args.step``
+counted by the step; inside it ``train.loss_and_grads``,
+``train.compress`` (``compressed_grad_tree``) and ``train.adamw``
+(``adamw.update``), the loss's all-reduce outside the three; and, in
+``kernels/ops.py``, ``attention.bwd`` around each flash-attention
+backward (the (out, lse) recomputation and the plain backward) and
+``ssd.bwd`` around each SSD scan's VJP. On the card autograd runs those
+backwards on its own device thread; their parent is still
+``train.loss_and_grads``.
 
 Design contract — **off by default, bitwise-off**: every hook in the
 engine/fleet stack routes through the module-level helpers below,
@@ -150,6 +170,7 @@ def export_run(rec: FlightRecorder, *, sched: Any = None) -> Dict[str, Any]:
         "displayTimeUnit": "ms",
         "meta": {
             "schema_version": TRACE_SCHEMA_VERSION,
+            "epoch_ns": rec.trace.epoch_ns,
             "n_span_events": len(events),
             "n_dropped_events": rec.trace.n_dropped,
             "n_timeline_segments": len(segments),

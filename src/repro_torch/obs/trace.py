@@ -8,12 +8,24 @@ https://ui.perfetto.dev load directly.
 
 Two clocks, deliberately:
 
-- **wall clock** (``time.perf_counter`` relative to the tracer's
-  epoch) is the ``ts``/``dur`` axis of every exported event, in
-  microseconds — that is what the trace viewers plot;
+- **wall clock** (:func:`profiler_clock_ns`, the clock that
+  ``torch.profiler`` stamps its host events with) is the ``ts``/``dur``
+  axis of every exported event, in microseconds from the tracer's epoch
+  (``Tracer.epoch_ns`` on that clock), so a recorded span and the
+  runtime calls and kernels of a profiled stretch lie on one axis;
 - **sim clock** (the scheduler's ``now``) rides along in ``args``
   as ``sim_t_s`` so a span can be joined back to the simulated
   timeline it belongs to.
+
+Every span carries ``args.id`` and ``args.parent``, the id of the span
+that caused it (None at a root), and takes the args named in
+:data:`INHERITED_ARGS` from its parent: the spans of one training step
+share its ``step``. The parent is the innermost span still open on the
+same thread; a span opened on a thread with none open of its own takes
+the innermost span open on any thread, because that thread works for a
+caller that waits on it (autograd runs a CUDA backward on its own device
+thread while the caller blocks in ``torch.autograd.grad``). An instant
+event carries ``args.parent`` alone.
 
 The process-wide default is :data:`NULL_TRACER`: every ``span()`` on
 it returns one cached no-op context manager, so uninstrumented runs
@@ -26,6 +38,8 @@ restore-on-exit semantics.
 from __future__ import annotations
 
 import collections
+import itertools
+import threading
 import time
 from typing import Any, Deque, Dict, List, Optional
 
@@ -44,11 +58,20 @@ TRACE_PID = 1
 TRACE_TID = 1
 TIMELINE_PID = 2
 
+# args a span takes from its parent unless it sets them itself
+INHERITED_ARGS = ("step",)
+
+
+def profiler_clock_ns() -> int:
+    """Now, in integer ns on the clock of ``torch.profiler``'s host events
+    (the Unix epoch's wall clock, ``time.time_ns``)."""
+    return time.time_ns()
+
 
 class Span:
     """One in-flight interval; close it (or use ``with``) to record."""
 
-    __slots__ = ("_tracer", "name", "cat", "args", "_t0_s", "_done")
+    __slots__ = ("_tracer", "name", "cat", "args", "thread", "_t0_ns", "_done")
 
     def __init__(self, tracer: "Tracer", name: str, cat: str,
                  args: Dict[str, Any]):
@@ -56,8 +79,10 @@ class Span:
         self.name = name
         self.cat = cat
         self.args = args
-        self._t0_s = time.perf_counter()
+        self.thread = threading.get_ident()
         self._done = False
+        tracer._opened(self)
+        self._t0_ns = profiler_clock_ns()
 
     def __enter__(self) -> "Span":
         return self
@@ -69,10 +94,11 @@ class Span:
         if self._done:  # idempotent: with-block plus explicit close
             return
         self._done = True
-        t1_s = time.perf_counter()
+        t1_ns = profiler_clock_ns()
+        self._tracer._closed(self)
         self._tracer._record(
             self.name, self.cat, "X",
-            self._t0_s, t1_s - self._t0_s, self.args,
+            self._t0_ns, t1_ns - self._t0_ns, self.args,
         )
 
 
@@ -109,8 +135,11 @@ class Tracer:
         self._events: Deque[Dict[str, Any]] = collections.deque(
             maxlen=self.capacity
         )
-        self._epoch_s = time.perf_counter()
+        self.epoch_ns = profiler_clock_ns()
         self.n_total = 0
+        self._ids = itertools.count(1)
+        self._open: List[Span] = []  # in the order they opened
+        self._lock = threading.Lock()
 
     # -- recording ---------------------------------------------------
 
@@ -124,22 +153,48 @@ class Tracer:
               sim_t_s: Optional[float] = None, **args: Any) -> None:
         if sim_t_s is not None:
             args["sim_t_s"] = sim_t_s
-        t_s = time.perf_counter()
-        self._record(name, cat, "i", t_s, 0.0, args)
+        with self._lock:
+            parent = self._parent(threading.get_ident())
+        args["parent"] = None if parent is None else parent.args["id"]
+        self._record(name, cat, "i", profiler_clock_ns(), 0, args)
 
-    def _record(self, name: str, cat: str, ph: str, t0_s: float,
-                dur_s: float, args: Dict[str, Any]) -> None:
-        self.n_total += 1
-        self._events.append({
+    def _parent(self, thread: int) -> Optional[Span]:
+        """The innermost span open on ``thread``, else on any thread."""
+        for span in reversed(self._open):
+            if span.thread == thread:
+                return span
+        return self._open[-1] if self._open else None
+
+    def _opened(self, span: Span) -> None:
+        with self._lock:
+            parent = self._parent(span.thread)
+            span.args["id"] = next(self._ids)
+            self._open.append(span)
+        span.args["parent"] = None if parent is None else parent.args["id"]
+        if parent is not None:
+            for key in INHERITED_ARGS:
+                if key in parent.args and key not in span.args:
+                    span.args[key] = parent.args[key]
+
+    def _closed(self, span: Span) -> None:
+        with self._lock:
+            self._open.remove(span)
+
+    def _record(self, name: str, cat: str, ph: str, t0_ns: int,
+                dur_ns: int, args: Dict[str, Any]) -> None:
+        event = {
             "name": name,
             "cat": cat,
             "ph": ph,
-            "ts": (t0_s - self._epoch_s) * 1e6,
-            "dur": dur_s * 1e6,
+            "ts": (t0_ns - self.epoch_ns) / 1e3,
+            "dur": dur_ns / 1e3,
             "pid": TRACE_PID,
             "tid": TRACE_TID,
             "args": args,
-        })
+        }
+        with self._lock:
+            self.n_total += 1
+            self._events.append(event)
 
     # -- inspection / export ----------------------------------------
 

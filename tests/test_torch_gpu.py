@@ -800,3 +800,65 @@ def test_f32_output_matmul_has_the_gradient_of_its_f32_form(cuda):
         assert got.dtype == torch.bfloat16
         torch.testing.assert_close(got.float(), want, rtol=0,
                                    atol=2.0 ** -7 * float(want.abs().max()))
+
+
+def _flash_inputs(cuda, requires_grad=False):
+    gen = torch.Generator(cuda).manual_seed(0)
+    return [torch.randn(1, 2, 128, 64, generator=gen, device=cuda).bfloat16()
+            .requires_grad_(requires_grad) for _ in range(3)]
+
+
+def test_span_holds_its_kernels_launch_on_the_profilers_clock(cuda):
+    """Under the benchmark's profiler settings (the device's activity
+    alone), a span around one flash-attention call holds that launch's
+    runtime call, and ``chipbench/program_trace.py`` gives the span the
+    kernel's device time: the recorder and the profiler share a clock."""
+    from torch.profiler import profile
+
+    from chipbench import program_trace
+    from chipbench import trace as bench_trace
+    from repro_torch import obs
+    from repro_torch.kernels import ops
+
+    q, k, v = _flash_inputs(cuda)
+    ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    with obs.recording() as rec:
+        with profile(activities=bench_trace.activities("cuda")) as prof:
+            with obs.span("probe", cat="test"):
+                ops.flash_attention(q, k, v)
+            torch.cuda.synchronize()
+    payload = obs.export_run(rec)
+    program = {"events": payload["traceEvents"], "epoch_ns": payload["meta"]["epoch_ns"]}
+    (span,) = program_trace.recorded_spans(program)
+    kernels = [e for e in prof.profiler.kineto_results.events()
+               if e.device_type() == torch.autograd.DeviceType.CUDA and "flash" in e.name()]
+    assert len(kernels) == 1
+    (launch,) = [e for e in prof.profiler.kineto_results.events()
+                 if e.device_type() == torch.autograd.DeviceType.CPU
+                 and e.correlation_id() == kernels[0].correlation_id()]
+    assert span.start_ns <= launch.start_ns() <= span.end_ns
+    got = program_trace.reduce(prof, program)["spans"]["probe"]
+    assert got["n"] == 1
+    assert got["device_ms"] == pytest.approx(kernels[0].duration_ns() / 1e6, rel=1e-9)
+
+
+def test_backward_span_on_the_autograd_thread_takes_the_waiting_span(cuda):
+    """On the card autograd runs the backward on its own device thread; the
+    ``attention.bwd`` opened there is still a child of the span that
+    waits in ``torch.autograd.grad``."""
+    import threading
+
+    from repro_torch import obs
+    from repro_torch.kernels import ops
+
+    q, k, v = _flash_inputs(cuda, requires_grad=True)
+    threads = []
+    q.register_hook(lambda g: threads.append(threading.get_ident()))
+    with obs.recording() as rec:
+        with obs.span("train.loss_and_grads", cat="train", step=3):
+            torch.autograd.grad(ops.flash_attention(q, k, v).float().sum(), [q, k, v])
+    assert threads and threads[0] != threading.get_ident()
+    by_name = {e["name"]: e["args"] for e in rec.trace.events()}
+    assert by_name["attention.bwd"]["parent"] == by_name["train.loss_and_grads"]["id"]
+    assert by_name["attention.bwd"]["step"] == 3
