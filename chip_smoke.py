@@ -34,7 +34,9 @@ Phases (every failure raises; nothing is caught):
    prefill and training shapes and zamba2-7b's prefill (two groups of 56
    heads, state 64), the int8 codec at starcoder2-3b's embedding
    and MLP weights, a ragged size and edge blocks (zero, NaN, inf,
-   half-way).
+   half-way), and the attention backward kernel at starcoder2-3b's
+   training shape against the plain backward (SDPA's backward timed as
+   its library yardstick).
 4. paper loop: evaluate.compare_governors at full characterization
    (11 f x 32 cores x 5 inputs, 4 apps: a (4, 1760, 1760) Gram), all 20
    plans, governors at the --quick settings; the plans are held against
@@ -316,20 +318,22 @@ COMPRESSED_CLOSE_SHARE = 0.75
 # reaches 1.3e-5 and 1.7e-5 on the host, a sound one 1.5e-7 and 1.4e-6
 COMPRESSED_MEDIAN_ATOL = 5e-6
 # full width, kernel arm vs plain arm on one forward and backward (bf16),
-# the loss and the global grad norm, relative: the kernel arm's backward
-# recomputes (out, lse) with the kernel and the plain arm's with the plain
-# version, so both the forward's and the recompute's one-ulp outputs differ
-# (the plain chunked backward is common to both)
+# the loss and the global grad norm, relative: the arms' backwards differ.
+# The kernel arm's is the Hopper backward on the forward kernel's saved
+# (out, lse), with P and dS rounded to bf16 as its products' operands; the
+# plain arm's recomputes (out, lse) with the plain version and runs the
+# plain chunked backward in f32 (the forward's one-ulp outputs differ too)
 TRAIN_FULL_REL = 1e-3
 TRAIN_FULL_ARGV = ["--batch", "2", "--seq", "4096"]  # the reference's train_4k sequence
 TRAIN_WARM, TRAIN_COUNTED = 2, 3
-# launches a step: starcoder2-3b has 30 layers (the attention forward, its
-# per-layer recomputation, and the backward's recompute of (out, lse)) and
-# 393 parameter tensors; mamba2-130m 24 layers (the SSD forward and its
-# recomputation) and 218 tensors; each tensor quantizes 3 times and
-# dequantizes once
+# launches a step: starcoder2-3b has 30 layers (the attention forward and
+# its per-layer recomputation, which saves (out, lse) for the backward
+# kernel, and one backward a layer) and 393 parameter tensors; mamba2-130m
+# 24 layers (the SSD forward and its recomputation) and 218 tensors; each
+# tensor quantizes 3 times and dequantizes once
 TRAIN_LAUNCHES = {
-    "starcoder2-3b": {"flash_attention": 90, "int8_quantize": 1179, "int8_dequantize": 393},
+    "starcoder2-3b": {"flash_attention": 60, "attention_bwd": 30, "int8_quantize": 1179,
+                      "int8_dequantize": 393},
     "mamba2-130m": {"ssd_chunks": 48, "int8_quantize": 654, "int8_dequantize": 218},
 }
 CODEC_SIZES = (150_994_944, 37_748_736, 1_000_003)  # the embedding, an MLP weight, ragged
@@ -669,7 +673,73 @@ def phase_kernels(torch, np, kind):
     results["flash_attention"] = _check_flash(torch, np, rng, kind)
     results["ssd_chunks"] = _check_ssd(torch, np, rng, kind)
     results.update(_check_codec(torch, np, kind))
+    results["attention_bwd"] = _check_attention_bwd(torch, np, kind)
     return results
+
+
+# the attention backward kernel against the plain backward in f32 on the
+# same bf16 inputs: the worst element within ATTN_BWD_TOL of the gradient's
+# largest (P and dS rounded to bf16 as operands, the outputs rounded once;
+# tests/test_torch_gpu.py holds the same)
+ATTN_BWD_TOL = 1e-2
+
+
+def _check_attention_bwd(torch, np, kind):
+    """The attention backward at starcoder2-3b's training shape (b 2, H
+    24, Hk 2, S 4,096, D 128, causal, bf16): kernel vs the plain backward,
+    timed from CUDA-graph replays beside its bound (the four products dV,
+    dP, dQ and dK over the causal pairs at the bf16 tensor-core rate), the
+    plain backward (one call between CUDA events), and SDPA's backward as
+    the library yardstick (the port never calls it; eager calls between
+    CUDA events: its backward runs on autograd's thread, which a graph
+    capture refuses)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.attention_bwd import attention_bwd_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    b, h, hk, s, d = 2, 24, 2, 4096, 128
+    rng = np.random.default_rng(SEED + 4)
+    dev = torch.device(DEVICE)
+    q, k, v, dout = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
+        dev, torch.bfloat16) for shape in ((b, h, s, d), (b, hk, s, d), (b, hk, s, d),
+                                           (b, h, s, d)))
+    kw = dict(causal=True, window=None, scale=None, q_offset=0, kv_len=None)
+    out, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    got = attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
+    want = ref.flash_attention_bwd_ref(q.float(), k.float(), v.float(), out.float(), lse,
+                                       dout.float(), causal=True)
+    torch.cuda.synchronize()
+    errs = []
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        scale = float(w.abs().max())
+        errs.append(float((g.float() - w).abs().max()) / scale)
+        if not bool(torch.isfinite(g).all()) or errs[-1] > ATTN_BWD_TOL:
+            raise AssertionError(f"attention_bwd {name}: worst element at {errs[-1]:.3g} of the "
+                                 f"gradient's largest (tolerance {ATTN_BWD_TOL})")
+    del got, want
+    ms = _time_ms(torch, lambda: attention_bwd_cuda(q, k, v, out, lse, dout, **kw), 10)
+    eager = _eager_ms(torch, lambda: attention_bwd_cuda(q, k, v, out, lse, dout, **kw), 10)
+    plain_ms = _eager_ms(torch, lambda: ref.flash_attention_bwd_ref(q, k, v, out, lse, dout,
+                                                                    causal=True), 1)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    o = F.scaled_dot_product_attention(*leaves, is_causal=True, enable_gqa=True)
+    library_ms = _eager_ms(torch, lambda: torch.autograd.grad(o, leaves, dout,
+                                                               retain_graph=True), 10)
+    del o, leaves
+    pairs = s * (s + 1) // 2
+    n_ops = 8.0 * b * h * d * pairs
+    n_bytes = 2 * (4 * b * h * s * d + 4 * b * hk * s * d) + 4 * b * h * s
+    bound, by = _bound_ms(n_bytes, n_ops, BF16_OPS_PER_S)
+    print(f"[kernel] attention_bwd b={b} h={h} hk={hk} s={s} d={d} bf16 causal: {ms:.4f} ms = "
+          f"{100 * bound / ms:.1f}% of the bound {bound:.4f} ms by {by} at the bf16 tensor-core "
+          f"rate, {ms / library_ms:.2f} x sdpa's backward {library_ms:.4f} ms (eager calls "
+          f"{eager:.4f} ms, plain {plain_ms:.1f} ms; worst element of dq, dk, dv at "
+          f"{', '.join(f'{e:.3g}' for e in errs)} of the largest) on {kind}", flush=True)
+    torch.cuda.empty_cache()
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, max_abs_err=max(errs),
+                library_ms=library_ms)
 
 
 def _check_pareto(torch, np, rng, kind, b, g, inputs=None):
@@ -2505,9 +2575,9 @@ def _step_apart(torch, arch, cfg, model, params, opt, resid, opt_cfg, b):
 
 def _train_breakdown(torch, arch, cfg, model, params, opt, resid, opt_cfg, b, batch, seq):
     """One more step taken apart (``_step_apart``), then, at one layer's
-    training shape, the attention kernel's forward, its (out, lse) recompute
-    in the backward, and the plain attention backward."""
-    from repro_torch.kernels import ops, ref
+    training shape, the attention kernel's forward with its lse (the
+    forward and its recomputation) and the backward kernel."""
+    from repro_torch.kernels.attention_bwd import attention_bwd_cuda
     from repro_torch.kernels.flash_attention import flash_attention_cuda
 
     t_fb, t_c, t_a = _step_apart(torch, arch, cfg, model, params, opt, resid, opt_cfg, b)
@@ -2517,22 +2587,19 @@ def _train_breakdown(torch, arch, cfg, model, params, opt, resid, opt_cfg, b, ba
                for shape in ((batch, a.n_heads, seq, a.d_head),
                              (batch, a.n_kv_heads, seq, a.d_head),
                              (batch, a.n_kv_heads, seq, a.d_head)))
-    fwd_ms = _time_ms(torch, lambda: ops.flash_attention(q, k, v), 3)
+    kw = dict(causal=True, window=None, scale=None, q_offset=0, kv_len=None)
 
-    def recompute():
-        return flash_attention_cuda(q, k, v, causal=True, window=None, scale=None,
-                                    q_offset=0, kv_len=None, return_lse=True)
+    def forward():
+        return flash_attention_cuda(q, k, v, return_lse=True, **kw)
 
-    rec_ms = _time_ms(torch, recompute, 3)
-    out, lse = recompute()
-    ref.flash_attention_bwd_ref(q, k, v, out, lse, q)  # warm-up
-    _, t_bwd = _sync_time(torch, lambda: ref.flash_attention_bwd_ref(q, k, v, out, lse, q))
+    fwd_ms = _time_ms(torch, forward, 3)
+    out, lse = forward()
+    bwd_ms = _time_ms(torch, lambda: attention_bwd_cuda(q, k, v, out, lse, q, **kw), 3)
     n = cfg.n_layers
-    kernel_s = (2 * fwd_ms + rec_ms) * n / 1e3
+    kernel_s = (2 * fwd_ms + bwd_ms) * n / 1e3
     print(f"[train] {arch.arch_id} one step taken apart: loss and gradients {t_fb:.3f} s "
-          f"(of it the attention kernel {kernel_s:.3f} s: {2 * n} x {fwd_ms:.3f} ms forward "
-          f"and recomputation, {n} x {rec_ms:.3f} ms recomputing (out, lse) in the backward; "
-          f"the plain attention backward {n} x {t_bwd:.3f} s = {n * t_bwd:.3f} s), "
+          f"(of it the attention kernels {kernel_s:.3f} s: {2 * n} x {fwd_ms:.3f} ms forward "
+          f"and recomputation, each with lse, and {n} x {bwd_ms:.3f} ms the backward kernel), "
           f"compression {t_c:.3f} s, AdamW {t_a:.3f} s", flush=True)
 
 
@@ -3177,7 +3244,7 @@ def main() -> int:
     t0 = _stage("train: mamba2-130m full width, a step taken apart", t0)
     train_launches = {k: TRAIN_COUNTED * star_launches.get(k, 0) + mamba_launches.get(k, 0)
                       for k in ops.LAUNCHES}
-    for name in ("int8_quantize", "int8_dequantize"):
+    for name in ("int8_quantize", "int8_dequantize", "attention_bwd"):
         launches[name] = train_launches[name]
 
     phase_sharding(torch, np)
@@ -3232,6 +3299,9 @@ def main() -> int:
                           "src/repro/kernels/int8_codec.py:35"),
         "int8_dequantize": ("src/repro_torch/kernels/csrc/int8_codec.cu",
                             "src/repro/kernels/int8_codec.py:63"),
+        "attention_bwd": ("src/repro_torch/kernels/csrc/attention_bwd.cu",
+                          "none (the reference's backward is jnp: "
+                          "src/repro/kernels/ops.py:_flash_vjp)"),
     }
     line = []
     for name, (source, replaces) in sources.items():
@@ -3252,7 +3322,7 @@ def main() -> int:
                                          "service_", "mixed_", "serve_", "whisper_",
                                          "phi3v_", "zamba2_", "elastic_", "remesh_",
                                          "dryrun_"))})
-        if name in ("flash_attention", "ssd_chunks"):
+        if name in ("flash_attention", "ssd_chunks", "attention_bwd"):
             entry["train_launches"] = train_launches[name]
         line.append(entry)
     left = _children()

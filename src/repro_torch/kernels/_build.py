@@ -36,6 +36,7 @@ NVCC_FLAGS = [
 LAUNCHES: Dict[str, int] = {
     "rbf_gram": 0, "plan_argmin": 0, "pareto_mask": 0,
     "flash_attention": 0, "ssd_chunks": 0, "int8_quantize": 0, "int8_dequantize": 0,
+    "attention_bwd": 0,
 }
 
 _P = ctypes.c_void_p
@@ -53,6 +54,9 @@ _SIGNATURES = {
     # is_bf16, scale, causal, window, kv_len, q_offset, splits, device, stream
     "flash_attention_launch": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _F,
                                _I, _I, _I, _I, _I, _I, _P],
+    # q, k, v, o, dout, lse, lse2, delta, dq_acc, dk_acc, dv_acc, dq, dk, dv,
+    # b, h, hk, sq, skv, d, scale, causal, window, kv_len, q_offset, device, stream
+    "attention_bwd_launch": [_P] * 14 + [_I] * 6 + [_F] + [_I] * 5 + [_P],
     # x, dt, a, B, C, y, states, c_decay, chunk_decay, b, h, g, nc, T, p, n,
     # head_slice, device, stream
     "ssd_chunks_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

@@ -14,13 +14,15 @@ kernel; ``reset_launches()`` sets every count to 0.
 Gradients: ``flash_attention`` and ``ssd_scan`` run inside a
 ``torch.autograd.Function``, as the reference's ``_flash_vjp`` /
 ``_ssd_vjp``: the forward is the kernel (CUDA) or the plain version (CPU,
-``impl="ref"``) and only the inputs are saved. The flash backward
-recomputes (out, lse) through the same dispatch as its forward (the
-kernel on the card) and then runs the plain chunked backward; the SSD
-backward is the VJP of the plain scan. Where no input needs a gradient
-(serving), the Function only runs its forward. Under a recorder
+``impl="ref"``). On the card, bf16 at a head dim the backward kernel takes
+(``attention_bwd.takes``: 16 to 128) saves the forward's (out, lse)
+beside the inputs and runs the Hopper backward (``csrc/attention_bwd.cu``);
+every other call saves only the inputs, recomputes (out, lse) through the
+forward's dispatch and runs the plain chunked backward, as the reference
+does. The SSD backward is the VJP of the plain scan. Where no input needs
+a gradient (serving), the Function only runs its forward. Under a recorder
 (``repro_torch.obs``) each backward is a span, ``attention.bwd`` or
-``ssd.bwd``. The kernels stay
+``ssd.bwd``. The other kernels stay
 forward-only, as the reference's do. A kernel
 launched through ctypes into ``torch.empty`` outputs has no ``grad_fn``:
 called bare under autograd it would leave every weight before it without
@@ -35,7 +37,7 @@ from typing import Optional
 import torch
 
 from repro_torch import obs
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, attention_bwd, ref
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.int8_codec import int8_dequantize_cuda, int8_quantize_cuda
 from repro_torch.kernels.plan_grid import pareto_mask_cuda, plan_argmin_cuda
@@ -122,7 +124,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = Non
     kernel.
     """
     kw = dict(causal=causal, window=window, scale=scale, q_offset=q_offset, kv_len=kv_len)
-    return _FlashAttention.apply(q, k, v, kw, impl)
+    # the backward kernel's residuals are saved only where a backward can run
+    kernel_bwd = (torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+                  and use_kernel(q, impl) and attention_bwd.takes(q))
+    return _FlashAttention.apply(q, k, v, kw, impl, kernel_bwd)
 
 
 def flash_attention_lse(q, k, v, *, causal: bool = True, window: Optional[int] = None,
@@ -162,24 +167,41 @@ def _flash_forward(q, k, v, kw, impl, return_lse=False):
 
 
 class _FlashAttention(torch.autograd.Function):
-    """Forward: the kernel or the plain version; saved: (q, k, v); backward:
-    (out, lse) recomputed through the forward's dispatch, then the plain
-    chunked backward."""
+    """Forward: the kernel or the plain version. With ``kernel_bwd`` (set
+    by ``flash_attention`` where grad mode is on, an input needs a gradient
+    and the Hopper backward takes the call: a CUDA tensor, not
+    ``impl="ref"``, bf16, head dim 16 to 128, ``attention_bwd.takes``) the
+    forward also returns lse and saves (q, k, v, out, lse), and the
+    backward is that kernel. Otherwise (f32, head dim 256, the host, the
+    plain arm) it saves (q, k, v), and the backward recomputes (out, lse)
+    through the forward's dispatch and runs the plain chunked backward
+    (``ref.flash_attention_bwd_ref``), the reference's algorithm."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kw, impl):
-        ctx.kw, ctx.impl = kw, impl
-        ctx.save_for_backward(q, k, v)
-        return _flash_forward(q, k, v, kw, impl)
+    def forward(ctx, q, k, v, kw, impl, kernel_bwd=False):
+        ctx.kw, ctx.impl, ctx.kernel_bwd = kw, impl, kernel_bwd
+        if not kernel_bwd:
+            ctx.save_for_backward(q, k, v)
+            return _flash_forward(q, k, v, kw, impl)
+        out, lse = _flash_forward(q, k, v, kw, impl, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
 
     @staticmethod
     def backward(ctx, g):
         with obs.span("attention.bwd", cat="train"):
-            q, k, v = ctx.saved_tensors
-            out, lse = _flash_forward(q, k, v, ctx.kw, ctx.impl, return_lse=True)
-            dq, dk, dv = ref.flash_attention_bwd_ref(q, k, v, out, lse, g.to(q.dtype),
-                                                     **ctx.kw, **_PLAIN_BLOCKS)
-        return dq, dk, dv, None, None
+            saved = ctx.saved_tensors  # once: a checkpoint unpacks each tensor once
+            q, k, v = saved[:3]
+            g = g.to(q.dtype)
+            if ctx.kernel_bwd:
+                dq, dk, dv = attention_bwd.attention_bwd_cuda(
+                    q.contiguous(), k.contiguous(), v.contiguous(), *saved[3:], g.contiguous(),
+                    **ctx.kw)
+            else:
+                out, lse = _flash_forward(q, k, v, ctx.kw, ctx.impl, return_lse=True)
+                dq, dk, dv = ref.flash_attention_bwd_ref(q, k, v, out, lse, g,
+                                                         **ctx.kw, **_PLAIN_BLOCKS)
+        return dq, dk, dv, None, None, None
 
 
 def ssd_chunks(x, dt, a, B, C, *, heads: int, impl: Optional[str] = None):

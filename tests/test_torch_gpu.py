@@ -695,15 +695,18 @@ def test_int8_codec_kernels_take_unaligned_views(cuda):
 @pytest.mark.parametrize("d", [32, 256])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_kernel_under_autograd(cuda, dtype, d):
-    """Kernel arm against plain arm: the backward recomputes (out, lse)
-    through the forward's dispatch, so on the kernel arm it launches the
-    kernel a second time and its inputs are the kernel's. f32: out within
+    """Kernel arm against plain arm. bf16 at d 32: the forward saves (out,
+    lse) and the backward is the Hopper kernel (one launch of each); f32
+    and d 256: the backward recomputes (out, lse) with the forward kernel
+    (a second launch) and runs the plain chunked backward. f32: out within
     2e-5 and lse within ~1e-6 move each gradient by well under 1e-3 of its
-    scale; bf16: out differs by one bf16 ulp (2^-8 relative) and every
+    scale; bf16: out differs by one bf16 ulp (2^-8 relative), the kernel
+    rounds P and dS to bf16 as operands (2^-9 relative each) and every
     gradient is rounded to bf16 once, so a few ulps, 2^-6 of its scale."""
     from repro_torch.kernels import ops
 
     dt = getattr(torch, dtype)
+    kernel_bwd = dt == torch.bfloat16 and d != 256
     rng = np.random.default_rng(0)
     q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda, dt)
                for s in ((2, 6, 67, d), (2, 2, 67, d), (2, 2, 67, d)))
@@ -711,13 +714,18 @@ def test_flash_attention_kernel_under_autograd(cuda, dtype, d):
     grads = {}
     for impl in (None, "ref"):
         leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-        before = ops.LAUNCHES["flash_attention"]
+        before = dict(ops.LAUNCHES)
         out = ops.flash_attention(*leaves, causal=True, window=24, impl=impl)
-        assert ops.LAUNCHES["flash_attention"] - before == (1 if impl is None else 0)
+        assert ops.LAUNCHES["flash_attention"] - before["flash_attention"] == (
+            1 if impl is None else 0)
         assert out.grad_fn is not None
         (out.float() * w).sum().backward()
-        # the forward and the backward's recompute of (out, lse)
-        assert ops.LAUNCHES["flash_attention"] - before == (2 if impl is None else 0)
+        fwd = ops.LAUNCHES["flash_attention"] - before["flash_attention"]
+        bwd = ops.LAUNCHES["attention_bwd"] - before["attention_bwd"]
+        if impl is None:
+            assert (fwd, bwd) == ((1, 1) if kernel_bwd else (2, 0))
+        else:
+            assert (fwd, bwd) == (0, 0)
         grads[impl] = [t.grad for t in leaves]
     rtol = 1e-3 if dt == torch.float32 else 2.0 ** -6
     for a, b in zip(grads[None], grads["ref"]):
@@ -725,6 +733,94 @@ def test_flash_attention_kernel_under_autograd(cuda, dtype, d):
         scale = float(b.float().abs().max())
         atol = (1e-4 if dt == torch.float32 else 2.0 ** -6) * scale
         torch.testing.assert_close(a.float(), b.float(), rtol=rtol, atol=atol)
+
+
+# the Hopper attention backward's cases: (b, h, hk, sq, skv, d, causal,
+# window, q_offset, kv_len). Head dims 16, 32, 64, 128 and the padded 96 and
+# 112; groups 1, 3 and 12 and MQA; causal and bidirectional, a window, query
+# offsets and kv_len below skv; lengths off the 64-row and 128-key tiles
+# (67, 93, 1,000); rows that see no key; and starcoder2-3b's training shape
+ATTN_BWD_CASES = [
+    (1, 4, 4, 67, 67, 16, True, None, 0, None),
+    (2, 6, 2, 67, 67, 64, True, None, 0, None),
+    (1, 3, 1, 1000, 1000, 32, True, None, 0, None),
+    (1, 24, 2, 1000, 1000, 128, True, None, 0, None),
+    (1, 4, 2, 93, 150, 128, False, None, 0, None),
+    (2, 4, 2, 70, 131, 64, True, None, 61, None),
+    (1, 4, 2, 200, 200, 64, True, 40, 0, None),
+    (1, 12, 1, 130, 130, 64, True, None, 0, 100),
+    (1, 2, 1, 64, 300, 32, False, 50, 236, 280),
+    (1, 4, 2, 20, 40, 16, True, 8, 30, 25),
+    (1, 2, 2, 20, 40, 64, False, None, 0, 0),
+    (1, 6, 2, 67, 67, 96, True, None, 0, None),
+    (1, 6, 2, 90, 90, 112, False, 30, 0, None),
+    (2, 24, 2, 4096, 4096, 128, True, None, 0, None),
+]
+
+
+@pytest.mark.parametrize("case", ATTN_BWD_CASES)
+def test_attention_bwd_kernel_matches_plain(cuda, case):
+    """dq, dk, dv of the kernel (bf16) against the plain backward in f32 on
+    the same bf16 inputs and the same (out, lse). The kernel rounds P and
+    dS to bf16 as the operands of its products (2^-9 relative each; the
+    sums over a row's keys or queries keep f32) and its outputs to bf16 once
+    (2^-9 relative): its worst element lies within 1e-2 of the gradient's
+    largest, and its error over all elements within 2^-8 of the gradient's
+    norm; the plain backward run in bf16 itself is held to the same."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.attention_bwd import attention_bwd_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    b, h, hk, sq, skv, d, causal, window, q_offset, kv_len = case
+    rng = np.random.default_rng(sq * 1000 + skv + d)
+    q, k, v, dout = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(
+        cuda, torch.bfloat16) for s in ((b, h, sq, d), (b, hk, skv, d), (b, hk, skv, d),
+                                        (b, h, sq, d)))
+    kw = dict(causal=causal, window=window, q_offset=q_offset, kv_len=kv_len)
+    out, lse = flash_attention_cuda(q, k, v, scale=None, return_lse=True, **kw)
+    before = ops.LAUNCHES["attention_bwd"]
+    got = attention_bwd_cuda(q, k, v, out, lse, dout, scale=None, **kw)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["attention_bwd"] == before + 1
+    want = ref.flash_attention_bwd_ref(q.float(), k.float(), v.float(), out.float(), lse,
+                                       dout.float(), **kw)
+    plain = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw)
+    for g, w, pl, like in zip(got, want, plain, (q, k, v)):
+        assert g.dtype == torch.bfloat16 and g.shape == like.shape and g.is_contiguous()
+        assert bool(torch.isfinite(g).all())
+        if kv_len == 0:
+            assert not g.any()
+            continue
+        scale = float(w.abs().max())
+        torch.testing.assert_close(g.float(), w, rtol=0, atol=1e-2 * scale)
+        norm = float(w.norm())
+        assert float((g.float() - w).norm()) <= 2.0 ** -8 * norm
+        assert float((pl.float() - w).norm()) <= 2.0 ** -8 * norm
+
+
+@pytest.mark.parametrize("dtype,d,kernel", [("bfloat16", 64, True), ("bfloat16", 112, True),
+                                            ("float32", 64, False), ("bfloat16", 256, False)])
+def test_attention_backward_takes_the_kernel_by_dtype_and_head_dim(cuda, dtype, d, kernel):
+    """bf16 at head dims up to 128 (112 padded) runs the Hopper backward; f32
+    (the caller's precision) and d 256 (tiles of their own) run the plain
+    one, after recomputing (out, lse) with the forward kernel."""
+    from repro_torch.kernels import ops
+
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(cuda).manual_seed(d)
+    q, k, v = (torch.randn(s, generator=gen, device=cuda).to(dt).requires_grad_(True)
+               for s in ((1, 4, 80, d), (1, 2, 80, d), (1, 2, 80, d)))
+    before = dict(ops.LAUNCHES)
+    out = ops.flash_attention(q, k, v, causal=True)
+    assert len(out.grad_fn.saved_tensors) == (5 if kernel else 3)
+    out.float().sum().backward()
+    torch.cuda.synchronize()
+    launched = {n: ops.LAUNCHES[n] - before[n] for n in ("flash_attention", "attention_bwd")}
+    assert launched == ({"flash_attention": 1, "attention_bwd": 1} if kernel
+                        else {"flash_attention": 2, "attention_bwd": 0})
+    with torch.no_grad():
+        assert ops.flash_attention(q, k, v).grad_fn is None
+    assert all(t.grad is not None and bool(torch.isfinite(t.grad).all()) for t in (q, k, v))
 
 
 def test_ssd_scan_kernel_under_autograd(cuda):

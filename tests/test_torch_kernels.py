@@ -317,8 +317,8 @@ def test_ssd_head_slice_fills_the_card_in_the_fewest_waves():
 
 def test_build_inputs_and_failure_mode(monkeypatch):
     names = [p.name for p in _build.sources()]
-    assert names == ["flash_attention.cu", "int8_codec.cu", "plan_grid.cu", "rbf_gram.cu",
-                     "ssd_scan.cu"]
+    assert names == ["attention_bwd.cu", "flash_attention.cu", "int8_codec.cu", "plan_grid.cu",
+                     "rbf_gram.cu", "ssd_scan.cu"]
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert _build.BUILD_DIR.parts[-2:] == ("build", "repro_torch_kernels")
@@ -351,7 +351,7 @@ def test_reset_launches_zeroes_every_count():
         ops.reset_launches()
         assert set(ops.LAUNCHES) == {"rbf_gram", "plan_argmin", "pareto_mask",
                                      "flash_attention", "ssd_chunks", "int8_quantize",
-                                     "int8_dequantize"}
+                                     "int8_dequantize", "attention_bwd"}
         assert all(v == 0 for v in ops.LAUNCHES.values())
     finally:
         ops.LAUNCHES.update(saved)
