@@ -9,7 +9,9 @@ reference as a run judges the program.
 
 One JSON line a seed and reading. For a serving cell ``--batches`` is how
 many batches of the mix count as finished, as many as a run's window
-finishes; the sample is drawn from them as a run draws it.
+finishes; the sample is drawn from them as a run draws it. Its cache is
+compared at the reference's last attention layer (``reference/lm.py``
+``last_kv_layer``), the layer a run's cache is compared at.
 """
 
 import argparse
@@ -47,9 +49,9 @@ def readings(bench, workload: str, seed: int, device: str, batches: int, cfg=Non
     weights, prompts = entry.feeds(cfg, seed, device)
     finished = entry.schedule(tr, seed, batches)
     picked = entry.sample(tr, seed, finished)
-    layers = ref_lm.dims(cfg)["layers"]
     return {"control": entry.judge(cfg, weights, prompts, finished,
-                                   {p: (None, None, None) for p in picked}, layers - 1, fp8)}
+                                   {p: (None, None, None) for p in picked},
+                                   ref_lm.last_kv_layer(cfg), fp8)}
 
 
 def main(argv=None) -> int:

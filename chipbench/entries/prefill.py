@@ -5,10 +5,11 @@ builds their caches and ``steps.greedy`` picks each request's first token,
 which the host reads after a synchronise.
 
 A request's time to first token runs from the start of its batch to that
-read. The last attention layer's cache of every batch is kept until the
-check, which samples the finished requests (the longest among them) and
-runs the plain reference over each prompt: the served token's logit gap
-and the cache it hands on are compared.
+read. The last attention cache of every batch (``port.last_kv``) is kept
+until the check, which samples the finished requests (the longest among
+them) and runs the plain reference over each prompt: the served token's
+logit gap, and the cache it hands on against the reference's
+``last_kv_layer``, are compared.
 """
 
 from __future__ import annotations
@@ -75,7 +76,7 @@ def feeds(cfg: dict, seed: int, dev):
 def run(ctx) -> dict:
     cfg, tr, dev = ctx.cfg, ctx.traffic, ctx.device
     arch, lm_cfg = port.arch_and_config(cfg)
-    m = ref_lm.dims(cfg)
+    kv_layer = ref_lm.last_kv_layer(cfg)
     weights, prompts = feeds(cfg, ctx.seed, dev)
     model = port.build_model(arch, lm_cfg, weights())
     fns = {bk["prompt"]: port.prefill_fn(arch, lm_cfg, bk["prompt"]) for bk in tr["buckets"]}
@@ -83,7 +84,12 @@ def run(ctx) -> dict:
     block = block_of(tr)
     with torch.inference_mode():
         for j, bk in enumerate(tr["buckets"]):  # every shape once, on batches of their own
-            fns[bk["prompt"]](model, prompts(-1 - j, bk["batch"], bk["prompt"]))[1].cpu()
+            caches, first = fns[bk["prompt"]](model, prompts(-1 - j, bk["batch"], bk["prompt"]))
+            first.cpu()
+            if port.last_kv(caches) is None:  # no cache to compare: stop before the window
+                raise ValueError(f"{cfg['arch']}: no prefill cache of the port holds keys, so "
+                                 f"port.last_kv finds no attention cache to compare")
+            del caches, first
         ctx.warm_profiler()
         ctx.sync()
         ctx.mark_window_start()
@@ -100,7 +106,7 @@ def run(ctx) -> dict:
             first = first.cpu()
             ttft += [time.perf_counter() - t_start] * rows
             served.append(first[:, 0])
-            kept.append(port.last_kv(caches, m["layers"]))
+            kept.append(port.last_kv(caches))
             del caches
             if ctx.trace:
                 after = port.launches()
@@ -119,9 +125,8 @@ def run(ctx) -> dict:
         del rec["stamps"]
     finished = plan[:len(served)]
     picked = sample(tr, ctx.seed, finished)
-    mine = {(i, r): (int(served[i][r]), kept[i][1][r].clone(), kept[i][2][r].clone())
+    mine = {(i, r): (int(served[i][r]), kept[i][0][r].clone(), kept[i][1][r].clone())
             for i, r in picked}
-    kv_layer = kept[0][0]
     del model, kept, served, fns
     ctx.free()
     numbers = judge(cfg, weights, prompts, finished, mine, kv_layer, precision.Precision("float32"))

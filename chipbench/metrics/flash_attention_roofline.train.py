@@ -1,8 +1,9 @@
 """The flash-attention kernel's share of its roofline in training: each
 launch's least time (causal QK^T and PV at the bf16 peak, or q, k, v
 read and the output written at the memory's rate) over the kernels'
-device time. The forward, its recomputation and the backward's (out,
-lse) recomputation each launch it."""
+device time. It launches twice a layer, each time writing lse: in the
+forward and in its recomputation for the backward, whose kernel
+(``attention_bwd``) reads the saved (out, lse)."""
 
 from chipbench import flops, peaks, readers
 

@@ -172,10 +172,13 @@ def prefill_fn(arch, lm_cfg, max_cache_len: int):
     return fn
 
 
-def last_kv(caches, n_layers: int):
-    """(layer, k, v) of the last attention layer's cache (b, hk, L, dh), or
-    None where no layer holds keys."""
-    for layer in range(n_layers - 1, -1, -1):
-        if "k" in caches[layer]:
-            return layer, caches[layer]["k"], caches[layer]["v"]
+def last_kv(caches):
+    """(k, v) of a prefill's last attention cache (b, hk, L, dh), or None
+    where no cache holds keys. The port keeps a shared block's caches after
+    the layers', one a call, so this is the last attention call's, made by a
+    layer or a shared block: the reference's ``last_kv_layer`` is the layer
+    it is compared with."""
+    for cache in reversed(caches):
+        if "k" in cache:
+            return cache["k"], cache["v"]
     return None

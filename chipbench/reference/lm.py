@@ -8,6 +8,13 @@ one layer (``layer``), the final norm, and its count of model FLOPs
 (``matrix_weights``, ``mixer_forward``). This module holds what the
 families share and runs the model.
 
+Two hooks are optional. ``layer_params(params, i)`` gives layer ``i`` its
+tensors: without it the ``blocks.{i}.`` slice; with it, also tensors that
+several layers share, which ``param_specs`` lists once and the hook hands
+out as the very objects of ``params``, so each is drawn once and its
+gradient sums over every use. ``READS_H0 = True`` has every layer called
+with ``h0=``, the embedding's output, besides its input.
+
 Parameters are ``{name: tensor}`` under the names of ``param_specs``; the
 benchmark draws them (``chipbench.inputs``) and hands the same values to
 the program. Matrices multiply as ``x @ w`` with w (d_in, d_out). Every
@@ -103,21 +110,51 @@ def _layer_params(params: Dict[str, torch.Tensor], i: int) -> Dict[str, torch.Te
     return {k[len(pre):]: v for k, v in params.items() if k.startswith(pre)}
 
 
+def _layer_fn(fam, cfg: dict, m: dict, params: Dict[str, torch.Tensor], i: int,
+              prec: Precision, h0: torch.Tensor):
+    """Layer ``i`` as ``f(h, kv_out=None)``: the family's ``layer`` on
+    ``layer_params(params, i)`` (the ``blocks.{i}.`` slice by default), and
+    with ``h0=`` where the family sets ``READS_H0``."""
+    p = getattr(fam, "layer_params", _layer_params)(params, i)
+    kw = {"h0": h0} if getattr(fam, "READS_H0", False) else {}
+
+    def f(h, kv_out=None):
+        return fam.layer(cfg, m, p, h, prec, kv_out, **kw)
+
+    return f
+
+
 def hidden(cfg: dict, params: Dict[str, torch.Tensor], tokens: torch.Tensor,
            prec: Precision, kv_layer: Optional[int] = None):
     """tokens (b, s) -> (final hidden states (b, s, d), [k, v] of layer
     ``kv_layer`` (b, hk, s, dh), k after RoPE, or None)."""
     fam = family(cfg)
     m = fam.dims(cfg)
-    h = params["embed.table"][tokens]
+    h0 = h = params["embed.table"][tokens]
     kv = [] if kv_layer is not None else None
     for i in range(m["layers"]):
-        p = _layer_params(params, i)
-        if i == kv_layer:
-            h = fam.layer(cfg, m, p, h, prec, kv)
-        else:
-            h = ckpt(lambda hh, pp=p: fam.layer(cfg, m, pp, hh, prec), h)
+        f = _layer_fn(fam, cfg, m, params, i, prec, h0)
+        h = f(h, kv) if i == kv_layer else ckpt(f, h)
     return fam.final_norm(cfg, params, h), kv
+
+
+@torch.no_grad()
+def last_kv_layer(cfg: dict) -> int:
+    """The last layer whose ``kv_out`` receives [k, v]: the layer that a
+    prefill's last attention cache (``chipbench.port.last_kv``) is compared
+    with. Each layer from the last runs once on the meta device, shapes
+    alone. Raises ValueError where no layer fills ``kv_out``."""
+    fam = family(cfg)
+    m = fam.dims(cfg)
+    params = {n: torch.empty(shape, device="meta") for n, shape, _ in fam.param_specs(cfg)}
+    h = torch.empty((1, 1, m["d"]), device="meta")
+    for i in range(m["layers"] - 1, -1, -1):
+        kv = []
+        _layer_fn(fam, cfg, m, params, i, Precision("float32"), h)(h, kv)
+        if kv:
+            return i
+    raise ValueError(f"{cfg['arch']}: no layer of the reference's {cfg['family']} family "
+                     f"fills kv_out, so a prefill has no attention cache to compare")
 
 
 def logits(cfg, params, h, prec: Precision) -> torch.Tensor:
