@@ -28,11 +28,16 @@ Phases (every failure raises; nothing is caught):
    its cross-attention at prefill and decode and its causal self-attention;
    phi-3-vision-4.2b's prefill of 576 patches + 1,024 tokens and decode at
    head dim 96, zamba2-7b's shared attention at 112, both padded to 128,
-   with the padding's own cost a decode step), its output and its lse (with
+   with the padding's own cost a decode step), at Zamba2-7B-Instruct's
+   shared blocks (head dim 224 padded to 256, softmax scale 112^-1/2: the
+   three prefill batches of chipbench's zamba2-7b.prefill_mix, 16 x 1,024,
+   8 x 2,048 and 4 x 4,096, and decode steps over 1,055 and 4,096 keys,
+   with the padding's cost), its output and its lse (with
    F.scaled_dot_product_attention, given the window's mask, timed as the
    library yardstick; the port never calls it), ssd_chunks at mamba2-130m's
    prefill and training shapes and zamba2-7b's prefill (two groups of 56
-   heads, state 64), the int8 codec at starcoder2-3b's embedding
+   heads, state 64; at b 8, and at the prefill_mix cell's 16 x 1,024 and
+   4 x 4,096), the int8 codec at starcoder2-3b's embedding
    and MLP weights, a ragged size and edge blocks (zero, NaN, inf,
    half-way), and the attention backward kernel at starcoder2-3b's
    training shape against the plain backward (SDPA's backward timed as
@@ -122,7 +127,12 @@ Phases (every failure raises; nothing is caught):
    memory, each kernel's launches and flash_attention's by path and head
    dim), then the plain arm (impl="ref") on the same weights and inputs,
    fed the kernel arm's tokens: prefill and step logits must agree within
-   SERVE_FULL_REL of their scale.
+   SERVE_FULL_REL of their scale; (c) Zamba2-7B-Instruct's layout
+   (configs/zamba2_7b): PUBLISHED_SMOKE in f32, kernel arm against plain
+   arm through serve.run; then PUBLISHED at full width (7,356,749,648
+   weights) at the prefill_mix cell's three batches, launches zeroed just
+   before each prefill and each decode step after it: 13 flash_attention
+   and 81 ssd_chunks a prefill, 13 flash_attention a step.
 7. train golden: starcoder2-3b and mamba2-130m at SMOKE width on the
    card, with the kernels, on the JAX package's weights and its pipeline's
    batches: three steps of launch.steps.make_train_step and three of the
@@ -186,10 +196,11 @@ Phases (every failure raises; nothing is caught):
    over the checkout exits 0 (`[lint]`).
 12. launches: one JSON line with every kernel's launch count on its main
    path (phases 4, 5 and 5b for the planning kernels, 5b's, 5c's, 5d's
-   and rbf_gram's in phase 4b beside them, 6b's kernel arms for the
-   serving kernels, phases 8-9's training runs for the codec, phases 10's
-   and 11's runs for all they launch, each counted from 0 just before its
-   path), its error against the plain version and its times.
+   and rbf_gram's in phase 4b beside them, 6b's kernel arms and 6c's
+   counted full-width runs for the serving kernels, phases 8-9's training
+   runs for the codec, phases 10's and 11's runs for all they launch, each
+   counted from 0 just before its path), its error against the plain
+   version and its times.
 13. the last line: {"ok": true, "device": {...}}.
 
 It exits non-zero without a CUDA device, and when the package is missing.
@@ -299,6 +310,16 @@ SERVE_FULL_ARCHS = ("starcoder2-3b", "mamba2-130m", "gemma3-12b", "granite-20b",
 # prompt-long and which passes no images (as the reference's main)
 SERVE_EXTRAS_SEED = 1
 WHISPER_FRAMES, WHISPER_PROMPT = 1500, 64
+# phase 6c: Zamba2-7B-Instruct's layout (configs/zamba2_7b.PUBLISHED, the
+# model of chipbench's zamba2-7b.prefill_mix): its shared blocks' softmax
+# scale (224 / 2)^-1/2 and calls a forward (13 hybrid layers); the cell's
+# prefill batches of 16,384 tokens; PUBLISHED_SMOKE's (batch, prompt,
+# tokens generated)
+ZAMBA2_PUB_SCALE = 112**-0.5
+ZAMBA2_PUB_CALLS = 13
+ZAMBA2_PUB_WEIGHTS = 7_356_749_648
+ZAMBA2_PUB_BATCHES = ((16, 1024), (8, 2048), (4, 4096))
+ZAMBA2_PUB_SMOKE = (2, 32, 5)
 TRAIN_ARCHS = ("starcoder2-3b", "mamba2-130m")
 SERVE_ARGV = ["--batch", "8", "--prompt-len", "1024", "--gen", "32"]
 TRAIN_GOLDEN = os.path.join(HERE, "tests", "data", "torch_port_train_golden.npz")
@@ -866,9 +887,9 @@ def _flash_case(torch, np, rng, kind, b, h, hk, sq, skv, d, dtype, **kw):
     if worst > 1.0:
         raise AssertionError(f"flash_attention {(b, h, hk, sq, skv, d)}: an error is "
                              f"{worst:.3g} x its tolerance ({rtol:.3g} |want| + {atol:.3g})")
-    lse_kw = dict(causal=True, window=None, q_offset=0, kv_len=None)
+    lse_kw = dict(causal=True, window=None, scale=None, q_offset=0, kv_len=None)
     lse_kw.update(kw)
-    _, lse = flash_attention_cuda(q, k, v, scale=None, return_lse=True, **lse_kw)
+    _, lse = flash_attention_cuda(q, k, v, return_lse=True, **lse_kw)
     _, lse_want = ref.flash_attention_ref(q, k, v, return_lse=True, **lse_kw)
     torch.cuda.synchronize()
     masked = torch.isneginf(lse_want)
@@ -907,10 +928,11 @@ def _flash_case(torch, np, rng, kind, b, h, hk, sq, skv, d, dtype, **kw):
         kp = torch.arange(kv_len, device=dev)[None, :]
         allowed = (qp - kp < window) & ((qp >= kp) if causal else True)
         library_ms = _time_ms(torch, lambda: F.scaled_dot_product_attention(
-            q, ks, vs, attn_mask=allowed, enable_gqa=True), reps)
+            q, ks, vs, attn_mask=allowed, scale=kw.get("scale"), enable_gqa=True), reps)
     else:
         library_ms = _time_ms(torch, lambda: F.scaled_dot_product_attention(
-            q, ks, vs, is_causal=causal and sq > 1, enable_gqa=True), reps)
+            q, ks, vs, is_causal=causal and sq > 1, scale=kw.get("scale"), enable_gqa=True),
+            reps)
     plan = launch_plan(b, h, hk, sq, skv, d, dtype, kv_len)
     print(f"[kernel] flash_attention b={b} h={h} hk={hk} sq={sq} kv_len={kv_len} d={d} "
           f"{str(dtype).replace('torch.', '')} {kw} ({plan.path}, splits {plan.splits}): "
@@ -989,6 +1011,25 @@ def _check_flash(torch, np, rng, kind):
         "zamba2_decode": _flash_case(torch, np, rng, kind, 8, 32, 32, 1, 1064, 112, bf16,
                                      causal=False, q_offset=1054, kv_len=1055),
     }
+    # Zamba2-7B-Instruct's shared blocks (zamba2-7b.prefill_mix): 32 heads
+    # of 224, padded to the d 256 instance, softmax scale (224 / 2)^-1/2, at
+    # the cell's three prefill batches of 16,384 tokens, and decode steps
+    # over a 1,064-slot cache (kv_len 1,055) and a full 4,096-slot one
+    rng = np.random.default_rng(SEED + 5)
+    pub = dict(causal=True, scale=ZAMBA2_PUB_SCALE)
+    step = dict(pub, causal=False)
+    published = {
+        "zamba2_pub": _flash_case(torch, np, rng, kind, 16, 32, 32, 1024, 1024, 224, bf16,
+                                  **pub),
+        "zamba2_pub_2048": _flash_case(torch, np, rng, kind, 8, 32, 32, 2048, 2048, 224, bf16,
+                                       **pub),
+        "zamba2_pub_4096": _flash_case(torch, np, rng, kind, 4, 32, 32, 4096, 4096, 224, bf16,
+                                       **pub),
+        "zamba2_pub_decode": _flash_case(torch, np, rng, kind, 8, 32, 32, 1, 1064, 224, bf16,
+                                         q_offset=1054, kv_len=1055, **step),
+        "zamba2_pub_decode_4096": _flash_case(torch, np, rng, kind, 4, 32, 32, 1, 4096, 224,
+                                              bf16, q_offset=4095, kv_len=4096, **step),
+    }
     # the JSON line carries the prefill shape, the larger share of the
     # serving time, and the other shapes' errors and times under their own
     # keys
@@ -1000,10 +1041,15 @@ def _check_flash(torch, np, rng, kind):
                     *zoo.items()):
         for key in ("max_abs_err", "lse_max_abs_err", "ms", "library_ms", "bound_ms"):
             out[f"{name}_{key}"] = r[key]
+    for name, r in published.items():
+        for key in ("max_abs_err", "lse_max_abs_err", "ms", "plain_ms", "library_ms",
+                    "bound_ms", "bound_by"):
+            out[f"{name}_{key}"] = r[key]
     # the head-dim padding a decode step pays: every call pads q, k and v,
     # and at decode k and v are the whole cache
     for name, h, slots, d, layers in (("phi3v", 32, 1640, 96, 32),
-                                      ("zamba2", 32, 1064, 112, 27)):
+                                      ("zamba2", 32, 1064, 112, 27),
+                                      ("zamba2_pub", 32, 1064, 224, ZAMBA2_PUB_CALLS)):
         out.update({f"{name}_pad_{k}": v for k, v in
                     _pad_cost(torch, name, 8, h, slots, d, layers, kind).items()})
     return out
@@ -1011,7 +1057,7 @@ def _check_flash(torch, np, rng, kind):
 
 def _pad_cost(torch, name, b, h, slots, d, layers, kind):
     """The wrapper's zero-padding of q (one row) and a decode step's k and
-    v caches from head dim ``d`` to 128, alone: ms a call from CUDA-graph
+    v caches from head dim ``d`` to its kernel instance's, alone: ms a call from CUDA-graph
     replays, the bytes it moves (each cache read once, its padded copy
     written once), and both over the step's ``layers`` attention calls."""
     from repro_torch.kernels.flash_attention import PADDED_HEAD_DIMS
@@ -1044,12 +1090,21 @@ def _check_ssd(torch, np, rng, kind):
     # 132 SMs head_slice picks 28 heads a block, two slices a group)
     zamba2 = _ssd_case(torch, np, np.random.default_rng(SEED + 4), kind, 8, 8, h=112, g=2,
                        n=64)
+    # zamba2-7b.prefill_mix's batches: 16 x 1,024 (b*h 1,792, 8 chunks)
+    # and 4 x 4,096 (b*h 448, 32 chunks), the same rows a launch
+    rng = np.random.default_rng(SEED + 6)
+    pub = _ssd_case(torch, np, rng, kind, 16, 8, h=112, g=2, n=64)
+    pub_4096 = _ssd_case(torch, np, rng, kind, 4, 32, h=112, g=2, n=64)
     # the JSON line carries the prefill shape (the serving path's), and the
     # other shapes' numbers under their own keys
     keys = ("max_abs_err", "ms", "bound_ms", "fp32_bound_ms", "plain_ms")
     return dict(prefill, **{f"train_{key}": train[key] for key in keys},
                 **{f"zamba2_{key}": zamba2[key] for key in keys},
-                zamba2_head_slice=zamba2["head_slice"])
+                zamba2_head_slice=zamba2["head_slice"],
+                **{f"zamba2_pub_{key}": pub[key] for key in keys},
+                zamba2_pub_head_slice=pub["head_slice"],
+                **{f"zamba2_pub_4096_{key}": pub_4096[key] for key in keys},
+                zamba2_pub_4096_head_slice=pub_4096["head_slice"])
 
 
 def _ssd_case(torch, np, rng, kind, b, nc, h=24, g=1, n=128):
@@ -2158,14 +2213,15 @@ def _serve_launches(cfg, gen: int) -> dict:
     attention call (an encoder-decoder's encoder, decoder self- and
     cross-attention at prefill, then self and cross at each step; an LM's
     attention layers and zamba2's shared-block calls at prefill and at
-    each step), ssd_chunks once per Mamba2 layer at prefill (decode is
-    the plain recurrence)."""
+    each step; Zamba2-7B-Instruct's once per hybrid layer), ssd_chunks
+    once per Mamba2 layer at prefill (decode is the plain recurrence)."""
     if hasattr(cfg, "n_dec_layers"):
         at_prefill, a_step, ssd = cfg.n_enc_layers + 2 * cfg.n_dec_layers, 2 * cfg.n_dec_layers, 0
     else:
         kinds = cfg.kinds()
         ssd = kinds.count("mamba")
-        at_prefill = a_step = len(kinds) - ssd + (cfg.n_groups if cfg.shared_attn else 0)
+        shared = (len(cfg.hybrid_layers) or cfg.n_groups) if cfg.shared_attn else 0
+        at_prefill = a_step = len(kinds) - ssd + shared
     return {"flash_attention": at_prefill + a_step * (gen - 1), "ssd_chunks": ssd,
             "flash_prefill": at_prefill, "flash_step": a_step}
 
@@ -2365,6 +2421,111 @@ def phase_serve_full(torch, np, smi: str = ""):
         del kernel_run, plain, pairs
         _free(torch)
     return launches, {f"{p} d{d}": n for (p, d), n in sorted(by_path.items())}
+
+
+def phase_serve_published(torch, np, smi: str = ""):
+    """Zamba2-7B-Instruct's layout (configs/zamba2_7b): PUBLISHED_SMOKE in
+    f32 through serve.run (steps.make_prefill, then make_serve_step), the
+    kernel arm against the plain arm fed its tokens, logits within
+    SERVE_GOLDEN_ATOL; then PUBLISHED at full width in bf16 (7,356,749,648
+    weights from a seed) at zamba2-7b.prefill_mix's three batches, each
+    run once to warm up, then counted from launches zeroed just before it:
+    a prefill launches ZAMBA2_PUB_CALLS flash_attention (d 224 padded to
+    the d 256 instance) and one ssd_chunks a Mamba2 layer, a decode step
+    after it ZAMBA2_PUB_CALLS flash_attention and no ssd_chunks. Returns
+    the counted full-width launches."""
+    from repro_torch.configs import get_arch, zamba2_7b
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve, steps
+
+    arch, dev = get_arch("zamba2-7b"), torch.device(DEVICE)
+    cfg = zamba2_7b.PUBLISHED_SMOKE
+    batch, prompt_len, gen = ZAMBA2_PUB_SMOKE
+    model = arch.init(torch.Generator(device=dev).manual_seed(SEED), cfg, device=dev)
+    prompts = serve.make_prompts(cfg, batch, prompt_len, SEED)
+    before = dict(ops.LAUNCHES)
+    kernel_run = serve.run(arch, cfg, model, prompts, gen)
+    launched = {name: ops.LAUNCHES[name] - before[name] for name in ("flash_attention",
+                                                                      "ssd_chunks")}
+    want = _serve_launches(cfg, gen)
+    if launched != {name: want[name] for name in launched}:
+        raise AssertionError(f"zamba2-7b PUBLISHED_SMOKE: launches {launched}, not {want}")
+    before = dict(ops.LAUNCHES)
+    plain = serve.run(arch, cfg, model, prompts, gen, impl="ref", forced=kernel_run.tokens)
+    if dict(ops.LAUNCHES) != before:
+        raise AssertionError("zamba2-7b PUBLISHED_SMOKE: the plain arm launched a kernel")
+    pairs = [(kernel_run.prefill_logits, plain.prefill_logits),
+             *zip(kernel_run.step_logits, plain.step_logits)]
+    err = max(float((k - p).abs().max()) for k, p in pairs)
+    print(f"[serve published] zamba2-7b PUBLISHED_SMOKE (f32, {len(cfg.hybrid_layers)} calls "
+          f"of {cfg.n_shared_blocks} shared blocks over {cfg.n_layers} layers) on the card: "
+          f"kernel vs plain arm logits max |err| {err:.3g} over the prefill and "
+          f"{gen - 1} steps (tolerance {SERVE_GOLDEN_ATOL}), launches "
+          f"{json.dumps(launched)}", flush=True)
+    if err > SERVE_GOLDEN_ATOL:
+        raise AssertionError("zamba2-7b PUBLISHED_SMOKE: kernel and plain arms disagree")
+    del model, kernel_run, plain, pairs
+    _free(torch)
+
+    cfg = zamba2_7b.PUBLISHED
+    if (len(cfg.hybrid_layers), cfg.attn.scale) != (ZAMBA2_PUB_CALLS, ZAMBA2_PUB_SCALE):
+        raise AssertionError(f"zamba2-7b PUBLISHED: {len(cfg.hybrid_layers)} calls at scale "
+                             f"{cfg.attn.scale}, not {ZAMBA2_PUB_CALLS} at {ZAMBA2_PUB_SCALE}")
+    t0 = time.perf_counter()
+    model = arch.init(torch.Generator(device=dev).manual_seed(SEED), cfg, device=dev)
+    n_weights = sum(p.numel() for p in model.parameters())
+    _sync(torch)
+    print(f"[serve published] zamba2-7b PUBLISHED: {n_weights:,} weights drawn on the card "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    if n_weights != ZAMBA2_PUB_WEIGHTS:
+        raise AssertionError(f"zamba2-7b PUBLISHED: {n_weights} weights")
+    want_prefill = {"flash_attention": ZAMBA2_PUB_CALLS,
+                    "ssd_chunks": cfg.kinds().count("mamba")}
+    want_step = {"flash_attention": ZAMBA2_PUB_CALLS, "ssd_chunks": 0}
+    total = {name: 0 for name in want_prefill}
+    for b, s in ZAMBA2_PUB_BATCHES:
+        tokens = torch.as_tensor(serve.make_prompts(cfg, b, s, SEED), dtype=torch.long,
+                                 device=dev)
+        prefill = steps.make_prefill(arch, cfg, max_cache_len=s + 8)
+        step = steps.make_serve_step(arch, cfg)
+        with torch.inference_mode():
+            caches, logits = prefill(model, {"tokens": tokens})  # warm-up
+            del caches, logits
+            _free(torch)
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            caches, logits = prefill(model, {"tokens": tokens})
+            _sync(torch)
+            prefill_s = time.perf_counter() - t0
+            at_prefill = {name: ops.LAUNCHES[name] for name in want_prefill}
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            caches, token, step_logits = step(model, caches, steps.greedy(logits))
+            _sync(torch)
+            step_s = time.perf_counter() - t0
+            at_step = {name: ops.LAUNCHES[name] for name in want_prefill}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        finite = bool(torch.isfinite(logits).all()) and bool(torch.isfinite(step_logits).all())
+        print(f"[serve published] zamba2-7b PUBLISHED {b}x{s} tokens: prefill "
+              f"{prefill_s * 1e3:.1f} ms ({b * s / prefill_s:,.0f} tokens/s), launches "
+              f"{json.dumps(at_prefill)}; a decode step {step_s * 1e3:.1f} ms, launches "
+              f"{json.dumps(at_step)}; {len(caches) - cfg.n_layers} shared-call caches; peak "
+              f"memory {peak:.2f} GiB" + (f"; {smi}" if smi else ""), flush=True)
+        if at_prefill != want_prefill or at_step != want_step:
+            raise AssertionError(f"zamba2-7b PUBLISHED {b}x{s}: launches {at_prefill} at "
+                                 f"prefill and {at_step} a step, not {want_prefill} and "
+                                 f"{want_step}")
+        if not finite or len(caches) != cfg.n_layers + ZAMBA2_PUB_CALLS:
+            raise AssertionError(f"zamba2-7b PUBLISHED {b}x{s}: non-finite logits or "
+                                 f"{len(caches)} caches")
+        for name in total:
+            total[name] += at_prefill[name] + at_step[name]
+        del caches, logits, step_logits, token, tokens
+        _free(torch)
+    del model
+    _free(torch)
+    return total
 
 
 def _train_opt(golden):
@@ -3233,6 +3394,11 @@ def main() -> int:
     for name in ("flash_attention", "ssd_chunks"):
         launches[name] = serve_launches[name]
     results["flash_attention"]["serve_launches_by_path"] = flash_by_path
+    published = phase_serve_published(torch, np, smi)
+    t0 = _stage("serve: Zamba2-7B-Instruct's layout, SMOKE then full width", t0)
+    for name, n in published.items():
+        launches[name] += n
+        results[name]["zamba2_pub_launches"] = n
     phase_train_golden(torch, np)
     t0 = _stage("train: SMOKE golden on the card", t0)
     ops.reset_launches()  # the training path's launches are counted from here

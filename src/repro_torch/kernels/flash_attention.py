@@ -12,7 +12,8 @@ the probabilities from. The plain version is ``ref.flash_attention_ref``;
 ``launch_plan`` says which of the kernel's paths a call takes, with its
 tiles, key splits and scratch; it is a pure function of the shapes, so the
 host tests check it. Head dims 16, 32, 64, 128 and 256 have kernel
-instances; 96 and 112 are zero-padded to 128, and a batch with b*h above
+instances; 96 and 112 are zero-padded to 128, 224 (Zamba2-7B's shared
+blocks) to 256, and a batch with b*h above
 65,535 runs as several launches of whole batch rows.
 """
 
@@ -30,7 +31,7 @@ from repro_torch.kernels import _build
 HEAD_DIMS = (16, 32, 64, 128, 256)  # csrc/flash_attention.cu: flash_attention_launch
 # head dims the wrapper zero-pads to a kernel instance: zero columns add
 # nothing to q k^T, give zero output columns, and are cut off again
-PADDED_HEAD_DIMS = {96: 128, 112: 128}
+PADDED_HEAD_DIMS = {96: 128, 112: 128, 224: 256}
 DTYPES = (torch.float32, torch.bfloat16)
 # b*h of one launch (the f32 kernels' grid y, the decode grid's z holds
 # b*hk): the wrapper cuts a larger batch into launches of at most this

@@ -42,6 +42,21 @@ class AttnConfig:
     window: Optional[int] = None  # sliding-window size (None = global)
     use_rope: bool = True
 
+    # not fields: ``WideAttnConfig`` sets them, so the configs of the archs
+    # keep the reference's fields
+    d_in = None  # input width, d_model when None
+    scale = None  # softmax scale, 1/sqrt(d_head) when None
+
+
+@dataclasses.dataclass(frozen=True)
+class WideAttnConfig(AttnConfig):
+    """Attention that reads a wider input than it writes (Zamba2-7B's shared
+    block: q, k, v of concat(h, h0), 2 d_model wide, o back to d_model),
+    with a softmax scale of its own."""
+
+    d_in: Optional[int] = None
+    scale: Optional[float] = None
+
 
 class Attention(nn.Module):
     """q, k, v, o projections; the functions below apply them."""
@@ -49,10 +64,10 @@ class Attention(nn.Module):
     def __init__(self, cfg: AttnConfig, dtype, *, generator: torch.Generator, device):
         super().__init__()
         kw = dict(dtype=dtype, generator=generator, device=device)
-        hd = cfg.d_head
-        self.q = common.Linear(cfg.d_model, cfg.n_heads * hd, bias=cfg.qkv_bias, **kw)
-        self.k = common.Linear(cfg.d_model, cfg.n_kv_heads * hd, bias=cfg.qkv_bias, **kw)
-        self.v = common.Linear(cfg.d_model, cfg.n_kv_heads * hd, bias=cfg.qkv_bias, **kw)
+        hd, d_in = cfg.d_head, cfg.d_in or cfg.d_model
+        self.q = common.Linear(d_in, cfg.n_heads * hd, bias=cfg.qkv_bias, **kw)
+        self.k = common.Linear(d_in, cfg.n_kv_heads * hd, bias=cfg.qkv_bias, **kw)
+        self.v = common.Linear(d_in, cfg.n_kv_heads * hd, bias=cfg.qkv_bias, **kw)
         self.o = common.Linear(cfg.n_heads * hd, cfg.d_model, bias=False, **kw)
 
 
@@ -162,7 +177,7 @@ def forward(p: Attention, cfg: AttnConfig, x: torch.Tensor, *,
         q = common.apply_rope(q, pos, cfg.rope_theta)
         k = common.apply_rope(k, pos, cfg.rope_theta)
     out = _flash(q, k, v, causal=cfg.causal and kv_input is None, window=cfg.window,
-                 impl=impl)
+                 scale=cfg.scale, impl=impl)
     out = p.o(_merge_heads(out))
     if not return_cache:
         return out
@@ -240,12 +255,12 @@ def decode_step(p: Attention, cfg: AttnConfig, x: torch.Tensor, cache: dict, *,
         _write_slot(cache["k"], k, slot)
         _write_slot(cache["v"], v, slot)
         out = _decode_attention(q, cache["k"], cache["v"], q_offset=q_offset, kv_len=kv_len,
-                                impl=impl)
+                                scale=cfg.scale, impl=impl)
         return p.o(_merge_heads(out)), {"k": cache["k"], "v": cache["v"], "idx": idx + 1}
     cache["k"][:, :, slot] = k[:, :, 0]
     cache["v"][:, :, slot] = v[:, :, 0]
     out = ops.flash_attention(q, cache["k"], cache["v"], causal=False, window=None,
-                              q_offset=q_offset, kv_len=kv_len, impl=impl)
+                              scale=cfg.scale, q_offset=q_offset, kv_len=kv_len, impl=impl)
     out = p.o(_merge_heads(out))
     return out, {"k": cache["k"], "v": cache["v"], "idx": idx + 1}
 
@@ -278,7 +293,7 @@ def _write_slot(cache, new, slot: int) -> None:
         cache.to_local()[:, :, slot - lo] = local[:, :, 0]
 
 
-def _decode_attention(q, k, v, *, q_offset: int, kv_len: int, impl):
+def _decode_attention(q, k, v, *, q_offset: int, kv_len: int, impl, scale=None):
     """One query position (q (b, h, 1, d)) against DTensor caches k, v
     (b, hk, L, d), each rank on its own batch rows and heads; where the
     caches split the slots over a mesh dim, each rank attends to its own
@@ -311,7 +326,7 @@ def _decode_attention(q, k, v, *, q_offset: int, kv_len: int, impl):
         kl, vl = kl[:, idx], vl[:, idx]
     lo, n = pctx.local_range(k.shape[2], mesh, k.placements, 2)
     valid = max(min(kv_len - lo, n), 0)
-    kw = dict(causal=False, q_offset=q_offset - lo, kv_len=valid, impl=impl)
+    kw = dict(causal=False, scale=scale, q_offset=q_offset - lo, kv_len=valid, impl=impl)
     if not seq_dims:
         return DTensor.from_local(ops.flash_attention(ql, kl, vl, **kw), mesh, op,
                                   run_check=False)

@@ -8,8 +8,9 @@ Conventions kept from the reference:
   and return the input's dtype;
 * ``unembed`` takes bf16 operands, accumulates in float32 and returns f32
   logits;
-* GELU is the tanh approximation (``jax.nn.gelu``'s default); RoPE rotates
-  interleaved pairs ``x[..., 0::2]``, ``x[..., 1::2]``.
+* GELU is the tanh approximation (``jax.nn.gelu``'s default; ``"gelu_erf"``
+  is the exact one, Zamba2-7B's); RoPE rotates interleaved pairs
+  ``x[..., 0::2]``, ``x[..., 1::2]``.
 
 Random init draws from a ``torch.Generator``: the same scheme as the
 reference (normal times std, cast to the model's dtype), but not the same
@@ -184,7 +185,7 @@ def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
 
 
 ACTIVATIONS = {"silu": torch.nn.functional.silu, "gelu": _gelu_tanh,
-               "relu": torch.relu}
+               "gelu_erf": torch.nn.functional.gelu, "relu": torch.relu}
 
 
 def activation(name: str):

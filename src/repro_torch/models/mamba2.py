@@ -34,6 +34,10 @@ class Mamba2Config:
     d_conv: int = 4
     chunk: int = 128
 
+    # not a field: ``GroupedNormMamba2Config`` sets it, so the configs of the
+    # archs keep the reference's fields
+    norm_groups = 1  # groups of channels the gated RMSNorm normalises apart
+
     @property
     def n_heads(self) -> int:
         if self.d_inner % self.head_dim:
@@ -47,6 +51,15 @@ class Mamba2Config:
     @property
     def d_in_proj(self) -> int:
         return 2 * self.d_inner + 2 * self.n_groups * self.d_state + self.n_heads
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupedNormMamba2Config(Mamba2Config):
+    """Mamba2 whose gated RMSNorm takes its statistics over ``norm_groups``
+    equal slices of the d_inner channels (Zamba2-7B: one a B/C group, as
+    mamba_ssm's ``RMSNormGated(group_size=d_inner // ngroups)``)."""
+
+    norm_groups: int = 1
 
 
 class Mamba2(nn.Module):
@@ -120,8 +133,14 @@ def _causal_conv(w: torch.Tensor, b: torch.Tensor, xbc: torch.Tensor,
 
 
 def _gated_rmsnorm(scale: torch.Tensor, y: torch.Tensor, z: torch.Tensor,
-                   eps: float = 1e-6) -> torch.Tensor:
+                   eps: float = 1e-6, groups: int = 1) -> torch.Tensor:
     yf = y.float() * torch.nn.functional.silu(z.float())
+    if groups > 1:  # each group of channels on its own statistics
+        if pctx.is_dtensor(yf):
+            raise NotImplementedError("a gated RMSNorm in groups on DTensors")
+        yg = yf.unflatten(-1, (groups, -1))
+        yg = yg * torch.rsqrt((yg * yg).mean(dim=-1, keepdim=True) + eps)
+        return (yg.flatten(-2) * scale.float()).to(y.dtype)
     sq = yf * yf
     if pctx.is_dtensor(sq):  # split over the channels: a partial sum, all-reduced here
         ms = pctx.reduce_partial(sq.sum(dim=-1, keepdim=True)) / sq.shape[-1]
@@ -213,10 +232,13 @@ def forward(p: Mamba2, cfg: Mamba2Config, x: torch.Tensor, *, return_state: bool
     y, ssm_state = out if return_state else (out, None)
     y = y + p.D[None, None, :, None] * xh.float()
     y = y.reshape(b, s, cfg.d_inner).to(x.dtype)
-    y = _gated_rmsnorm(p.norm_scale, y, z)
+    y = _gated_rmsnorm(p.norm_scale, y, z, groups=cfg.norm_groups)
     y = p.out_proj(y)
     if return_state:
-        return y, {"conv": conv_state, "ssm": ssm_state}
+        # a copy: the conv state is a view of the conv's whole input, which
+        # it would keep alive in the cache (at Zamba2-7B's prefill, 81
+        # layers x 243 MB a 16 x 1,024 batch)
+        return y, {"conv": conv_state.clone(), "ssm": ssm_state}
     return y
 
 
@@ -247,6 +269,6 @@ def decode_step(p: Mamba2, cfg: Mamba2Config, x: torch.Tensor, state: dict):
     ssm_new, y = _ssm_step(state["ssm"], xh, dt, A, Bc, Cc)
     y = y + p.D[None, :, None] * xh.float()
     y = y.reshape(b, 1, cfg.d_inner).to(x.dtype)
-    y = _gated_rmsnorm(p.norm_scale, y, z)
+    y = _gated_rmsnorm(p.norm_scale, y, z, groups=cfg.norm_groups)
     y = p.out_proj(y)
     return y, {"conv": conv_state, "ssm": ssm_new}

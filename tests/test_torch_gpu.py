@@ -470,6 +470,30 @@ def test_flash_attention_kernel_pads_head_dims_96_and_112(cuda, d, path):
                          kv_len=kv_len)
 
 
+@pytest.mark.parametrize("sq, q_offset, kv_len", [(4096, 0, None), (1, 4095, 4096)])
+def test_flash_attention_kernel_at_zamba2s_head_dim_224(cuda, sq, q_offset, kv_len):
+    """Zamba2-7B's shared blocks: 32 heads of 224 over 4,096 keys, causal,
+    bf16, softmax scale (224 / 2)^-1/2, zero-padded to the d 256 instance:
+    the prefill and a decode step against ``scaled_dot_product_attention``
+    in f32 on the same bf16 values, at the bf16 tolerances above."""
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(224 + sq)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda,
+                                                                              torch.bfloat16)
+               for s in ((1, 32, sq, 224), (1, 32, 4096, 224), (1, 32, 4096, 224)))
+    scale = 112**-0.5
+    before = ops.LAUNCHES["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=sq > 1, scale=scale, q_offset=q_offset,
+                              kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    want = torch.nn.functional.scaled_dot_product_attention(
+        q.float(), k.float(), v.float(), is_causal=sq > 1, scale=scale)
+    torch.testing.assert_close(got.float(), want, rtol=0, atol=2e-2)
+    torch.testing.assert_close(got.float(), want, rtol=2.0 ** -7, atol=1e-4)
+
+
 @pytest.mark.parametrize("path", sorted(FLASH_PATHS))
 def test_flash_attention_kernel_takes_65536_batch_heads(cuda, path):
     """b*h = 65,536 at tiny widths: two launches of whole batch rows, each
