@@ -39,9 +39,11 @@ Phases (every failure raises; nothing is caught):
    heads, state 64; at b 8, and at the prefill_mix cell's 16 x 1,024 and
    4 x 4,096), the int8 codec at starcoder2-3b's embedding
    and MLP weights, a ragged size and edge blocks (zero, NaN, inf,
-   half-way), and the attention backward kernel at starcoder2-3b's
+   half-way), the attention backward kernel at starcoder2-3b's
    training shape against the plain backward (SDPA's backward timed as
-   its library yardstick).
+   its library yardstick), and the SSD backward kernels at mamba2-130m's
+   training shape and Zamba2-7B-Instruct's heads (b 16 x 8 chunks)
+   against the plain VJP (every gradient, timed beside its bound).
 4. paper loop: evaluate.compare_governors at full characterization
    (11 f x 32 cores x 5 inputs, 4 apps: a (4, 1760, 1760) Gram), all 20
    plans, governors at the --quick settings; the plans are held against
@@ -151,8 +153,8 @@ Phases (every failure raises; nothing is caught):
    build/chip_smoke_ckpt/), then a second main that resumes from step 4
    and runs to 6; then one step taken apart as phase 8's (loss and
    gradients, of it the ssd_chunks launches x the kernel's ms, the SSD
-   scan's forward and the plain SSD VJP at one layer's shape; compression;
-   AdamW).
+   scan's forward, the SSD backward kernels and the plain SSD VJP at one
+   layer's shape; compression; AdamW).
 10. distribution: (a) the partition rules (parallel/sharding.py) of all
    ten archs at full width on the meta device, on (16, 16), (2, 16, 16),
    (2, 4), (4, 2) and (8, 1): param, FSDP, opt-state, batch, cache and
@@ -283,6 +285,9 @@ LSE_TOL = (1e-5, 1e-4)
 # ssd_chunks, kernel vs plain: f32 sums of up to T*n terms in another order
 # and a cumsum taken as a scan, relative to the output's scale
 SSD_REL = 1e-4
+# the largest f32 product the plain SSD VJP's einsums may hold at once
+# (phase 3 runs it on as many batch rows as fit)
+SSD_PLAIN_BYTES = 8e9
 # serve at SMOKE width (f32) on the card vs the JAX package on the host
 SERVE_GOLDEN_ATOL = 1e-4
 # serve at full width (bf16), kernel arm vs plain arm, teacher-forced:
@@ -350,12 +355,14 @@ TRAIN_WARM, TRAIN_COUNTED = 2, 3
 # launches a step: starcoder2-3b has 30 layers (the attention forward and
 # its per-layer recomputation, which saves (out, lse) for the backward
 # kernel, and one backward a layer) and 393 parameter tensors; mamba2-130m
-# 24 layers (the SSD forward and its recomputation) and 218 tensors; each
-# tensor quantizes 3 times and dequantizes once
+# 24 layers (the SSD forward and its recomputation, which saves the chunks'
+# entry states for the backward kernels, and one backward a layer) and 218
+# tensors; each tensor quantizes 3 times and dequantizes once
 TRAIN_LAUNCHES = {
     "starcoder2-3b": {"flash_attention": 60, "attention_bwd": 30, "int8_quantize": 1179,
                       "int8_dequantize": 393},
-    "mamba2-130m": {"ssd_chunks": 48, "int8_quantize": 654, "int8_dequantize": 218},
+    "mamba2-130m": {"ssd_chunks": 48, "ssd_bwd": 24, "int8_quantize": 654,
+                    "int8_dequantize": 218},
 }
 CODEC_SIZES = (150_994_944, 37_748_736, 1_000_003)  # the embedding, an MLP weight, ragged
 CKPT_DIR = os.path.join(HERE, "build", "chip_smoke_ckpt")
@@ -695,6 +702,7 @@ def phase_kernels(torch, np, kind):
     results["ssd_chunks"] = _check_ssd(torch, np, rng, kind)
     results.update(_check_codec(torch, np, kind))
     results["attention_bwd"] = _check_attention_bwd(torch, np, kind)
+    results["ssd_bwd"] = _check_ssd_bwd(torch, np, kind)
     return results
 
 
@@ -1162,6 +1170,94 @@ def _ssd_case(torch, np, rng, kind, b, nc, h=24, g=1, n=128):
           f"{worst:.3g} x its tolerance, {SSD_REL} of its scale) on {kind}", flush=True)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, max_abs_err=err,
                 library_ms=None, fp32_bound_ms=fp32_bound, head_slice=heads)
+
+
+def _check_ssd_bwd(torch, np, kind):
+    """The SSD backward at mamba2-130m.train_4k's shape (b 2, s 4,096, 24
+    heads of 64, one group, state 128) and at Zamba2-7B-Instruct's heads
+    (b 16 x 8 chunks, 112 heads in 2 groups, state 64)."""
+    train = _ssd_bwd_case(torch, np, kind, 2, 4096, 24, 1, 128)
+    zamba2 = _ssd_bwd_case(torch, np, kind, 16, 1024, 112, 2, 64)
+    keys = ("max_abs_err", "ms", "bound_ms", "plain_ms", "eager_ms")
+    return dict(train, **{f"zamba2_{key}": zamba2[key] for key in keys})
+
+
+def _ssd_bwd_case(torch, np, kind, b, s, h, g, n, p=64, T=128):
+    """One SSD backward shape: every gradient of ``ops.ssd_scan`` through
+    the Hopper backward against the plain VJP's (autograd through
+    ``ref.ssd_scan_ref``), each within SSD_REL of its largest element
+    (tests/test_torch_gpu.py holds the same); the kernel pair with the
+    reverse scan between them (``ssd_bwd.ssd_bwd_cuda``) timed from CUDA-graph
+    replays beside its bound (chipbench's ssd_bwd_roofline.train: twice the
+    forward's products at the TF32 rate, or x, dY, dx, G, H, Z, B, C, dB,
+    dC, dt and ddt once each in f32), the plain VJP from one eager call."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ssd_bwd import ssd_bwd_cuda
+
+    rng = np.random.default_rng(SEED + 8)
+    dev = torch.device(DEVICE)
+
+    def t(a):
+        return torch.from_numpy(a.astype(np.float32)).to(dev)
+
+    x, dt = t(rng.standard_normal((b, s, h, p))), t(rng.uniform(1e-3, 0.1, (b, s, h)))
+    A = t(-rng.uniform(1.0, 16.0, h))
+    B, C = t(rng.standard_normal((b, s, g, n))), t(rng.standard_normal((b, s, g, n)))
+    gy = t(rng.standard_normal((b, s, h, p)))
+    nc, tri = -(-s // T), T * (T + 1) // 2
+    # the plain VJP on a few batch rows at a time (the scan is independent
+    # across rows; dA is the sum of the rows'): its einsums hold (rows, nc,
+    # h, T, T, p) f32 products, 28 GiB at Zamba2-7B's 16 rows
+    rows = max(1, min(b, int(SSD_PLAIN_BYTES // (4 * nc * h * T * T * p))))
+
+    graph = []  # each slice's output and leaves (the plain arm saves its inputs alone)
+    for r0 in range(0, b, rows):
+        rs = slice(r0, r0 + rows)
+        leaves = [v.clone().requires_grad_(True) for v in (x[rs], dt[rs], A, B[rs], C[rs])]
+        graph.append((ops.ssd_scan(*leaves, chunk=T, impl="ref"), leaves, gy[rs]))
+
+    def plain():
+        parts = [torch.autograd.grad(y, leaves, g, retain_graph=True) for y, leaves, g in graph]
+        return [torch.cat(d) if i != 2 else sum(d) for i, d in enumerate(zip(*parts))]
+
+    leaves = [v.clone().requires_grad_(True) for v in (x, dt, A, B, C)]
+    grads = {None: torch.autograd.grad(ops.ssd_scan(*leaves, chunk=T), leaves, gy),
+             "ref": plain()}
+    torch.cuda.synchronize()
+    errs = []
+    for name, got, want in zip(("x", "dt", "A", "B", "C"), grads[None], grads["ref"]):
+        errs.append(float((got - want).abs().max()) / float(want.abs().max()))
+        if not bool(torch.isfinite(got).all()) or errs[-1] > SSD_REL:
+            raise AssertionError(f"ssd_bwd d{name}: worst element at {errs[-1]:.3g} of the "
+                                 f"gradient's largest (tolerance {SSD_REL})")
+    del grads
+    xc, dtc, a, Bf, Cf = ops._chunk_layout(x, dt, A, B, C, T)
+    H = ops.ssd_scan_chunked(x, dt, A, B, C, chunk=T, entry_states=True)[-1]
+    dyc, Ab = ops._per_chunk(gy, T), A.repeat(b).contiguous()
+
+    def kernel():
+        return ssd_bwd_cuda(xc, dtc, a, Ab, Bf, Cf, H, dyc, None, heads=h)
+
+    ms = _time_ms(torch, kernel, 5)
+    eager = _eager_ms(torch, kernel, 5)
+    del xc, dtc, a, Bf, Cf, H, dyc
+    torch.cuda.empty_cache()
+    plain_ms = _eager_ms(torch, plain, 1)
+    del graph
+    n_ops = 2.0 * b * nc * (2.0 * g * tri * n + h * (2.0 * tri * p + 4.0 * T * n * p))
+    n_bytes = 4.0 * (3 * b * h * nc * T * p + 3 * b * h * nc * n * p + 4 * b * nc * T * g * n
+                     + 2 * b * h * nc * T)
+    bound, by = _bound_ms(n_bytes, n_ops, TF32_OPS_PER_S)
+    print(f"[kernel] ssd_bwd b={b} s={s} h={h} g={g} n={n} p={p} T={T}: {ms:.4f} ms = "
+          f"{100 * bound / ms:.1f}% of the bound {bound:.4f} ms by {by} ({n_bytes / 1e6:.1f} MB, "
+          f"{n_ops / 1e9:.2f} GFLOP at the TF32 rate), plain VJP {plain_ms:.2f} ms ({rows} of "
+          f"{b} batch rows a call; eager calls "
+          f"{eager:.4f} ms; worst element of dx, ddt, dA, dB, dC at "
+          f"{', '.join(f'{e:.3g}' for e in errs)} of the largest, tolerance {SSD_REL}) on {kind}",
+          flush=True)
+    torch.cuda.empty_cache()
+    return dict(ms=ms, eager_ms=eager, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                max_abs_err=max(errs), library_ms=None)
 
 
 def _port_energy_grid(np, torch, node_seed, app, n):
@@ -2789,9 +2885,10 @@ def phase_train_mamba_apart(torch, ssd_ms: float):
                                             seed=0))
     args = (torch, arch, cfg, model, params, opt, resid, opt_cfg)
     _step_apart(*args, steps.batch_to_torch(pipe.next(), dev))  # warm
-    before = ops.LAUNCHES["ssd_chunks"]
+    before = dict(ops.LAUNCHES)
     t_fb, t_c, t_a = _step_apart(*args, steps.batch_to_torch(pipe.next(), dev))
-    launches = ops.LAUNCHES["ssd_chunks"] - before
+    launches = ops.LAUNCHES["ssd_chunks"] - before["ssd_chunks"]
+    bwd_launches = ops.LAUNCHES["ssd_bwd"] - before["ssd_bwd"]
     peak = torch.cuda.max_memory_allocated()
     del model, params, opt, resid
     torch.cuda.empty_cache()
@@ -2809,22 +2906,31 @@ def phase_train_mamba_apart(torch, ssd_ms: float):
                                           for _ in range(reps + 1)])
     _, t_fwd = _sync_time(torch, lambda: [ops.ssd_scan(x, dt, A, B, C, chunk=chunk)
                                           for _ in range(reps)])
-    leaves = [t.detach().requires_grad_(True) for t in (x, dt, A, B, C)]
-    y = ops.ssd_scan(*leaves, chunk=chunk)
-    gy = torch.randn(y.shape, generator=gen, device=DEVICE).to(y.dtype)
-    torch.autograd.grad(y, leaves, gy, retain_graph=True)  # warm-up
-    _, t_vjp = _sync_time(torch, lambda: torch.autograd.grad(y, leaves, gy, retain_graph=True))
+    gy = torch.randn(x.shape, generator=gen, device=DEVICE).to(x.dtype)
+
+    def backward_s(impl):
+        """Seconds of one backward of the scan at a layer's shape: the
+        Hopper backward (impl None) or the plain VJP ("ref")."""
+        leaves = [t.detach().requires_grad_(True) for t in (x, dt, A, B, C)]
+        y = ops.ssd_scan(*leaves, chunk=chunk, impl=impl)
+        torch.autograd.grad(y, leaves, gy, retain_graph=True)  # warm-up
+        return _sync_time(torch, lambda: [torch.autograd.grad(y, leaves, gy, retain_graph=True)
+                                          for _ in range(reps)])[1] / reps
+
+    t_bwd, t_vjp = backward_s(None), backward_s("ref")
     n = cfg.n_layers
     fwd_ms = 1e3 * t_fwd / reps
     print(f"[train] mamba2-130m one step taken apart (batch {batch} x seq {seq}, compressed "
           f"over one NCCL rank): loss and gradients {t_fb:.3f} s (of it ssd_chunks {launches} "
           f"launches x {ssd_ms:.4f} ms = {launches * ssd_ms / 1e3:.4f} s; the SSD scan's "
           f"forward, kernel and torch recurrence, at a layer's shape {fwd_ms:.3f} ms, "
-          f"{launches} a step = {launches * fwd_ms / 1e3:.3f} s; the plain SSD VJP {n} x "
-          f"{t_vjp:.4f} s = {n * t_vjp:.3f} s), compression {t_c:.3f} s, AdamW {t_a:.3f} s; "
-          f"peak memory {peak / 2**30:.2f} GiB", flush=True)
-    if launches != TRAIN_LAUNCHES["mamba2-130m"]["ssd_chunks"]:
-        raise AssertionError(f"mamba2-130m: ssd_chunks launched {launches} times in a step")
+          f"{launches} a step = {launches * fwd_ms / 1e3:.3f} s; the SSD backward kernels with "
+          f"the reverse scan {bwd_launches} x {1e3 * t_bwd:.3f} ms = {bwd_launches * t_bwd:.3f} s"
+          f", beside the plain SSD VJP's {n} x {t_vjp:.4f} s = {n * t_vjp:.3f} s), compression "
+          f"{t_c:.3f} s, AdamW {t_a:.3f} s; peak memory {peak / 2**30:.2f} GiB", flush=True)
+    for name, got in (("ssd_chunks", launches), ("ssd_bwd", bwd_launches)):
+        if got != TRAIN_LAUNCHES["mamba2-130m"][name]:
+            raise AssertionError(f"mamba2-130m: {name} launched {got} times in a step")
 
 
 def _dir_bytes(path: str) -> int:
@@ -3410,7 +3516,7 @@ def main() -> int:
     t0 = _stage("train: mamba2-130m full width, a step taken apart", t0)
     train_launches = {k: TRAIN_COUNTED * star_launches.get(k, 0) + mamba_launches.get(k, 0)
                       for k in ops.LAUNCHES}
-    for name in ("int8_quantize", "int8_dequantize", "attention_bwd"):
+    for name in ("int8_quantize", "int8_dequantize", "attention_bwd", "ssd_bwd"):
         launches[name] = train_launches[name]
 
     phase_sharding(torch, np)
@@ -3418,7 +3524,8 @@ def main() -> int:
     elastic_launches, _ = _counted(ops, lambda: phase_elastic(torch, np, ops, smi))
     t0 = _stage("distribution: mamba2-130m re-meshed under ElasticController", t0)
     print(f"[launches] elastic re-mesh: {json.dumps(elastic_launches)}", flush=True)
-    for name in ("rbf_gram", "plan_argmin", "ssd_chunks", "int8_quantize", "int8_dequantize"):
+    for name in ("rbf_gram", "plan_argmin", "ssd_chunks", "ssd_bwd", "int8_quantize",
+                 "int8_dequantize"):
         if elastic_launches[name] <= 0:
             raise AssertionError(f"elastic re-mesh: {name} never launched")
     remesh_launches, _ = _counted(ops, lambda: phase_remesh_to_card(torch, np, smi))
@@ -3468,6 +3575,9 @@ def main() -> int:
         "attention_bwd": ("src/repro_torch/kernels/csrc/attention_bwd.cu",
                           "none (the reference's backward is jnp: "
                           "src/repro/kernels/ops.py:_flash_vjp)"),
+        "ssd_bwd": ("src/repro_torch/kernels/csrc/ssd_bwd.cu",
+                    "none (the reference's backward is jnp: "
+                    "src/repro/kernels/ops.py:_ssd_vjp)"),
     }
     line = []
     for name, (source, replaces) in sources.items():
@@ -3488,7 +3598,7 @@ def main() -> int:
                                          "service_", "mixed_", "serve_", "whisper_",
                                          "phi3v_", "zamba2_", "elastic_", "remesh_",
                                          "dryrun_"))})
-        if name in ("flash_attention", "ssd_chunks", "attention_bwd"):
+        if name in ("flash_attention", "ssd_chunks", "attention_bwd", "ssd_bwd"):
             entry["train_launches"] = train_launches[name]
         line.append(entry)
     left = _children()

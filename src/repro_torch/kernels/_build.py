@@ -10,7 +10,8 @@ unchanged sources, reuses it. A failed build raises.
 
 ``launch(name, fn, *args)`` is the one place a kernel is launched: it calls
 the C launcher, raises when the launcher reports a CUDA error, and adds one
-to ``LAUNCHES[name]``.
+to ``LAUNCHES[name]`` (``count=0`` for a later launcher of a call already
+counted).
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ NVCC_FLAGS = [
 LAUNCHES: Dict[str, int] = {
     "rbf_gram": 0, "plan_argmin": 0, "pareto_mask": 0,
     "flash_attention": 0, "ssd_chunks": 0, "int8_quantize": 0, "int8_dequantize": 0,
-    "attention_bwd": 0,
+    "attention_bwd": 0, "ssd_bwd": 0,
 }
 
 _P = ctypes.c_void_p
@@ -61,6 +62,12 @@ _SIGNATURES = {
     # head_slice, device, stream
     "ssd_chunks_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                           _I, _I, _P],
+    # x, dt, a, B, C, dy, dx, z, ddt, dcum, decay, dB_part, dC_part, b, h, g, nc,
+    # T, p, n, head_slice, device, stream
+    "ssd_bwd_intra_launch": [_P] * 13 + [_I] * 9 + [_P],
+    # x, dt, a, A, B, C, dy, H, G, gh, dx, ddt, dcum, dw, dcy, dA_part, dB_part,
+    # dC_part, b, h, g, nc, T, p, n, head_slice, device, stream
+    "ssd_bwd_state_launch": [_P] * 18 + [_I] * 9 + [_P],
     # x, q, scales, n, nb, device, stream
     "int8_quantize_launch": [_P, _P, _P, _L, _L, _I, _P],
     # q, scales, out, n, device, stream
@@ -149,12 +156,13 @@ def library() -> ctypes.CDLL:
     return _LIB
 
 
-def launch(name: str, fn_name: str, *args) -> None:
-    """Call one C launcher; raise on a CUDA error; count the launch."""
+def launch(name: str, fn_name: str, *args, count: int = 1) -> None:
+    """Call one C launcher; raise on a CUDA error; add ``count`` to the
+    launches of ``name``."""
     err = getattr(library(), fn_name)(*args)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
-    LAUNCHES[name] += 1
+    LAUNCHES[name] += count
 
 
 def reset_launches() -> None:

@@ -19,8 +19,10 @@ Gradients: ``flash_attention`` and ``ssd_scan`` run inside a
 beside the inputs and runs the Hopper backward (``csrc/attention_bwd.cu``);
 every other call saves only the inputs, recomputes (out, lse) through the
 forward's dispatch and runs the plain chunked backward, as the reference
-does. The SSD backward is the VJP of the plain scan. Where no input needs
-a gradient (serving), the Function only runs its forward. Under a recorder
+does. On the card the SSD forward also saves the chunks' entry states and
+the backward is the Hopper kernel pair (``csrc/ssd_bwd.cu``); on the host
+and under ``impl="ref"`` it is the VJP of the plain scan. Where no input
+needs a gradient (serving), the Function only runs its forward. Under a recorder
 (``repro_torch.obs``) each backward is a span, ``attention.bwd`` or
 ``ssd.bwd``. The other kernels stay
 forward-only, as the reference's do. A kernel
@@ -42,6 +44,7 @@ from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.int8_codec import int8_dequantize_cuda, int8_quantize_cuda
 from repro_torch.kernels.plan_grid import pareto_mask_cuda, plan_argmin_cuda
 from repro_torch.kernels.rbf_gram import rbf_gram_cuda
+from repro_torch.kernels.ssd_bwd import ssd_bwd_cuda
 from repro_torch.kernels.ssd_scan import ssd_chunks_cuda
 
 LAUNCHES = _build.LAUNCHES
@@ -212,38 +215,61 @@ def ssd_chunks(x, dt, a, B, C, *, heads: int, impl: Optional[str] = None):
     return ssd_chunks_cuda(x, dt, a, B, C, heads=heads)
 
 
-def ssd_scan_chunked(x, dt, A, B, C, *, chunk: int, h0=None, return_state: bool = False):
-    """Chunked SSD around ``ssd_chunks``, as the reference's
-    ``_ssd_pallas_impl``: pad s to a multiple of ``chunk``, lay x and dt out
-    per (b·h, chunk) with A tiled over the batch, run the chunk block, then
-    the inter-chunk recurrence (from ``h0`` (b, h, n, p), zeros when None)
-    and the state-output product as torch ops. B and C stay (b, s, g, n):
-    the chunk block reads them per group."""
-    b, s, h, p = x.shape
-    g, n = B.shape[2], B.shape[3]
+def _per_chunk(t, chunk: int):
+    """(b, s, h, ...) -> (b·h, nc, chunk, ...) f32 contiguous, s zero-padded
+    to a multiple of ``chunk``."""
+    b, s, h = t.shape[:3]
     pad = (-s) % chunk
     if pad:
-        x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
-        dt = torch.nn.functional.pad(dt, (0, 0, 0, pad))
+        t = torch.nn.functional.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+    nc = t.shape[1] // chunk
+    return t.movedim(2, 1).reshape(b * h, nc, chunk, *t.shape[3:]).float().contiguous()
+
+
+def _chunk_layout(x, dt, A, B, C, chunk: int):
+    """The chunk kernels' layout, as the reference's ``_ssd_pallas_impl``:
+    x and dt per (b·h, chunk) (``_per_chunk``), a = dt·A with A tiled over
+    the batch, B and C (b, nc·T, g, n) padded alike, all f32 contiguous."""
+    b = x.shape[0]
+    xc, dtc = _per_chunk(x, chunk), _per_chunk(dt, chunk)
+    a = (dtc * A.float().repeat(b)[:, None, None]).contiguous()
+    pad = (-B.shape[1]) % chunk
+    if pad:
         B = torch.nn.functional.pad(B, (0, 0, 0, 0, 0, pad))
         C = torch.nn.functional.pad(C, (0, 0, 0, 0, 0, pad))
-    nc = x.shape[1] // chunk
-    xc = x.movedim(2, 1).reshape(b * h, nc, chunk, p).float().contiguous()
-    dtc = dt.movedim(2, 1).reshape(b * h, nc, chunk).float().contiguous()
-    a = (dtc * A.float().repeat(b)[:, None, None]).contiguous()
-    y_intra, states, c_decay, chunk_decay = ssd_chunks(
-        xc, dtc, a, B.float().contiguous(), C.float().contiguous(), heads=h)
+    return xc, dtc, a, B.float().contiguous(), C.float().contiguous()
+
+
+def ssd_scan_chunked(x, dt, A, B, C, *, chunk: int, h0=None, return_state: bool = False,
+                     entry_states: bool = False):
+    """Chunked SSD around ``ssd_chunks``, as the reference's
+    ``_ssd_pallas_impl``: the chunk layout (``_chunk_layout``), the chunk
+    block, then the inter-chunk recurrence (from ``h0`` (b, h, n, p), zeros
+    when None) and the state-output product as torch ops. B and C stay (b,
+    s, g, n): the chunk block reads them per group. ``entry_states`` also
+    returns, last, the chunks' entry states (b·h, nc, n, p) f32, which the
+    state-output product reads anyway (the backward kernel's input)."""
+    b, s, h, p = x.shape
+    n = B.shape[3]
+    xc, dtc, a, Bf, Cf = _chunk_layout(x, dt, A, B, C, chunk)
+    nc = xc.shape[1]
+    y_intra, states, c_decay, chunk_decay = ssd_chunks(xc, dtc, a, Bf, Cf, heads=h)
+    del Bf, Cf  # freed once read: serving holds no temporary longer than it must
     hprev = (torch.zeros((b * h, n, p), dtype=torch.float32, device=x.device)
              if h0 is None else h0.reshape(b * h, n, p).float())
     h_prevs = []
     for c in range(nc):  # sequential over chunks, tiny
         h_prevs.append(hprev)
         hprev = hprev * chunk_decay[:, c] + states[:, c]
-    y_state = c_decay @ torch.stack(h_prevs, dim=1)  # (bh, nc, T, n) @ (bh, nc, n, p)
+    H = torch.stack(h_prevs, dim=1)
+    y_state = c_decay @ H  # (bh, nc, T, n) @ (bh, nc, n, p)
+    if not entry_states:
+        del H  # likewise, before the sum below
     y = (y_intra + y_state).reshape(b, h, nc * chunk, p).movedim(1, 2)[:, :s].to(x.dtype)
-    if return_state:
-        return y, hprev.reshape(b, h, n, p)
-    return y
+    out = (y, hprev.reshape(b, h, n, p)) if return_state else (y,)
+    if entry_states:
+        return (*out, H)
+    return out if return_state else y
 
 
 def ssd_scan(x, dt, A, B, C, *, chunk: int = 128, h0=None, return_state: bool = False,
@@ -255,30 +281,47 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 128, h0=None, return_state: bool = 
     A CPU tensor or ``impl="ref"`` takes the plain ``ref.ssd_scan_ref``
     (where the reference routes its jnp oracle); a CUDA tensor takes
     ``ssd_scan_chunked`` around the Hopper chunk kernel, with or without
-    ``h0``.
+    ``h0``, and its backward the Hopper backward (``ssd_bwd.ssd_bwd_cuda``).
     """
-    return _SSDScan.apply(x, dt, A, B, C, h0, chunk, return_state, impl)
+    # the backward kernel's input (the chunks' entry states) is saved only
+    # where a backward can run
+    kernel_bwd = (torch.is_grad_enabled() and use_kernel(x, impl)
+                  and any(t is not None and t.requires_grad for t in (x, dt, A, B, C, h0)))
+    return _SSDScan.apply(x, dt, A, B, C, h0, chunk, return_state, impl, kernel_bwd)
 
 
 class _SSDScan(torch.autograd.Function):
-    """Forward: the chunk kernel's scan or the plain version; saved: the
-    inputs (``h0`` too); backward: the VJP of the plain ``ssd_scan_ref``,
-    recomputed."""
+    """Forward: the chunk kernel's scan or the plain version. With
+    ``kernel_bwd`` (set by ``ssd_scan`` where grad mode is on, an input
+    needs a gradient and the call runs on the card) the forward also saves
+    the chunks' entry states beside the inputs, and the backward is the
+    Hopper kernel pair (``ssd_bwd.ssd_bwd_cuda``). Otherwise (the host,
+    ``impl="ref"``) it saves the inputs (``h0`` too) and the backward is the
+    VJP of the plain ``ssd_scan_ref``, recomputed. Without a gradient
+    (serving) the forward runs the same launches and ops either way."""
 
     @staticmethod
-    def forward(ctx, x, dt, A, B, C, h0, chunk, return_state, impl):
-        ctx.chunk, ctx.return_state = chunk, return_state
-        ctx.save_for_backward(x, dt, A, B, C, h0)
+    def forward(ctx, x, dt, A, B, C, h0, chunk, return_state, impl, kernel_bwd=False):
+        ctx.chunk, ctx.return_state, ctx.kernel_bwd = chunk, return_state, kernel_bwd
         kw = dict(chunk=chunk, h0=h0, return_state=return_state)
         if not use_kernel(x, impl):
+            ctx.save_for_backward(x, dt, A, B, C, h0)
             return ref.ssd_scan_ref(x, dt, A, B, C, **kw)
-        return ssd_scan_chunked(x, dt, A, B, C, **kw)
+        if not kernel_bwd:
+            ctx.save_for_backward(x, dt, A, B, C, h0)
+            return ssd_scan_chunked(x, dt, A, B, C, **kw)
+        *out, H = ssd_scan_chunked(x, dt, A, B, C, entry_states=True, **kw)
+        ctx.save_for_backward(x, dt, A, B, C, h0, H)
+        return tuple(out) if return_state else out[0]
 
     @staticmethod
     def backward(ctx, *grads):
         with obs.span("ssd.bwd", cat="train"):
-            inputs = [None if t is None else t.detach().requires_grad_(True)
-                      for t in ctx.saved_tensors]
+            saved = ctx.saved_tensors  # once: a checkpoint unpacks each tensor once
+            if ctx.kernel_bwd:
+                d = _ssd_kernel_backward(saved, grads, ctx.chunk, ctx.return_state)
+                return (*d, None, None, None, None)
+            inputs = [None if t is None else t.detach().requires_grad_(True) for t in saved]
             with torch.enable_grad():
                 out = ref.ssd_scan_ref(*inputs[:5], chunk=ctx.chunk, h0=inputs[5],
                                        return_state=ctx.return_state)
@@ -287,7 +330,28 @@ class _SSDScan(torch.autograd.Function):
             wrt = [t for t in inputs if t is not None]
             d = iter(torch.autograd.grad([o for o, _ in pairs], wrt, [g for _, g in pairs],
                                          allow_unused=True))
-            return (*(None if t is None else next(d) for t in inputs), None, None, None)
+            return (*(None if t is None else next(d) for t in inputs), None, None, None, None)
+
+
+def _ssd_kernel_backward(saved, grads, chunk: int, return_state: bool):
+    """dx, ddt, dA, dB, dC and d h0 of ``ssd_scan_chunked`` by the Hopper
+    backward, in the inputs' layouts and dtypes (d h0 None without h0)."""
+    x, dt, A, B, C, h0, H = saved
+    b, s, h, p = x.shape
+    n = B.shape[3]
+    xc, dtc, a, Bf, Cf = _chunk_layout(x, dt, A, B, C, chunk)
+    nc = xc.shape[1]
+    dyc = _per_chunk(grads[0] if grads[0] is not None else torch.zeros_like(x), chunk)
+    d_final = grads[1] if return_state else None
+    if d_final is not None:
+        d_final = d_final.reshape(b * h, n, p).float().contiguous()
+    dxc, ddtc, dA_part, dB, dC, dh0 = ssd_bwd_cuda(
+        xc, dtc, a, A.float().repeat(b).contiguous(), Bf, Cf, H, dyc, d_final, heads=h)
+    dx = dxc.reshape(b, h, nc * chunk, p).movedim(1, 2)[:, :s].to(x.dtype)
+    ddt = ddtc.reshape(b, h, nc * chunk).movedim(1, 2)[:, :s].to(dt.dtype)
+    dA = dA_part.reshape(b, h, nc).sum((0, 2)).to(A.dtype)
+    dh0 = None if h0 is None else dh0.reshape(b, h, n, p).to(h0.dtype)
+    return dx, ddt, dA, dB[:, :s].to(B.dtype), dC[:, :s].to(C.dtype), dh0
 
 
 ssm_decode_step = ref.ssm_decode_step  # the recurrent step is plain torch, as in the reference

@@ -847,6 +847,109 @@ def test_attention_backward_takes_the_kernel_by_dtype_and_head_dim(cuda, dtype, 
     assert all(t.grad is not None and bool(torch.isfinite(t.grad).all()) for t in (q, k, v))
 
 
+# the SSD backward kernel against the plain VJP (autograd through
+# ref.ssd_scan_ref), both f32 on the card with TF32 off: the kernel's
+# products are 3xTF32 (about f32's 24 bits) and its sums run in another
+# order, over up to T * n terms; d dt and dA are sums whose terms cancel (d
+# cum's row and column sums of Q), so each gradient is held to 1e-4 of its
+# largest element, the forward's SSD tolerance (chip_smoke.py SSD_REL)
+SSD_BWD_REL = 1e-4
+
+
+def _ssd_bwd_grads(inputs, weights, chunk, impl, h0=None):
+    """Every input's gradient (h0's too, when given) of sum(y * w) (+ sum(final * wf))."""
+    from repro_torch.kernels import ops
+
+    leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+    x, dt, A, B, C = leaves[:5]
+    h0_leaf = leaves[5] if h0 is not None else None
+    out = ops.ssd_scan(x, dt, A, B, C, chunk=chunk, h0=h0_leaf,
+                       return_state=len(weights) == 2, impl=impl)
+    outs = out if isinstance(out, tuple) else (out,)
+    loss = sum((o * w).sum() for o, w in zip(outs, weights))
+    return torch.autograd.grad(loss, leaves)
+
+
+# (b, s, h, g, n, p, chunk, with h0 and the final state): mamba2-130m's
+# training shape (mamba2-130m.train_4k), Zamba2-7B's heads (112 in 2 groups
+# of 56, state 64) at 8 chunks, and ragged lengths with chunks of 16, 32
+# and 40 (state 10 and head dim 6 off the 16-byte copies)
+SSD_BWD_CASES = [
+    (2, 4096, 24, 1, 128, 64, 128, False),
+    (1, 1024, 112, 2, 64, 64, 128, False),
+    (2, 100, 4, 2, 16, 8, 16, True),
+    (2, 75, 6, 1, 10, 6, 32, True),
+    (1, 90, 4, 1, 16, 32, 40, True),
+]
+
+
+def _ssd_bwd_case(cuda, case):
+    b, s, h, g, n, p, chunk, with_state = case
+    rng = np.random.default_rng(s + h + n)
+    inputs = list(_ssd_inputs(rng, b, s, h, p, g, n, cuda))
+    weights = [torch.from_numpy(rng.normal(size=(b, s, h, p)).astype(np.float32)).to(cuda)]
+    h0 = None
+    if with_state:
+        h0 = torch.from_numpy(rng.normal(size=(b, h, n, p)).astype(np.float32)).to(cuda)
+        inputs.append(h0)
+        weights.append(torch.from_numpy(rng.normal(size=(b, h, n, p)).astype(np.float32))
+                       .to(cuda))
+    return inputs, weights, chunk, h0
+
+
+@pytest.mark.parametrize("case", SSD_BWD_CASES)
+def test_ssd_bwd_kernel_matches_the_plain_vjp(cuda, case):
+    """dx, ddt, dA, dB, dC (and d h0) of the Hopper backward against the
+    plain VJP, each within SSD_BWD_REL of its largest element; one count of
+    ``LAUNCHES["ssd_bwd"]`` a backward call, none under ``impl="ref"``."""
+    from repro_torch.kernels import ops
+
+    inputs, weights, chunk, h0 = _ssd_bwd_case(cuda, case)
+    before = dict(ops.LAUNCHES)
+    got = _ssd_bwd_grads(inputs, weights, chunk, None, h0)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ssd_bwd"] == before["ssd_bwd"] + 1
+    assert ops.LAUNCHES["ssd_chunks"] == before["ssd_chunks"] + 1
+    mid = dict(ops.LAUNCHES)
+    want = _ssd_bwd_grads(inputs, weights, chunk, "ref", h0)
+    torch.cuda.synchronize()
+    assert dict(ops.LAUNCHES) == mid
+    for name, g, w in zip(("x", "dt", "A", "B", "C", "h0"), got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        assert bool(torch.isfinite(g).all()), name
+        scale = float(w.abs().max())
+        err = float((g - w).abs().max())
+        assert err <= SSD_BWD_REL * scale, f"{name}: max |err| {err:.3g} > {SSD_BWD_REL} x {scale:.3g}"
+
+
+@pytest.mark.parametrize("case", [SSD_BWD_CASES[1], SSD_BWD_CASES[2]])
+def test_ssd_bwd_kernel_repeats_bit_for_bit(cuda, case):
+    """No float atomics: two backward calls on the same inputs give the
+    same bits (two head slices a group at Zamba2-7B's shape, whose dB and
+    dC partials are summed in a fixed order)."""
+    inputs, weights, chunk, h0 = _ssd_bwd_case(cuda, case)
+    first = _ssd_bwd_grads(inputs, weights, chunk, None, h0)
+    second = _ssd_bwd_grads(inputs, weights, chunk, None, h0)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_ssd_scan_saves_entry_states_only_for_a_backward(cuda):
+    """On the card the forward saves the chunks' entry states beside the
+    inputs where a backward can run; without a gradient (serving) it
+    builds no graph, and the plain arm saves the inputs alone."""
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(3)
+    leaves = [t.requires_grad_(True) for t in _ssd_inputs(rng, 2, 70, 4, 8, 1, 16, cuda)]
+    assert len(ops.ssd_scan(*leaves, chunk=32).grad_fn.saved_tensors) == 7
+    assert len(ops.ssd_scan(*leaves, chunk=32, impl="ref").grad_fn.saved_tensors) == 6
+    with torch.no_grad():
+        assert ops.ssd_scan(*leaves, chunk=32).grad_fn is None
+    with torch.inference_mode():
+        assert ops.ssd_scan(*leaves, chunk=32).grad_fn is None
+
+
 def test_ssd_scan_kernel_under_autograd(cuda):
     from repro_torch.kernels import ops
 
@@ -856,13 +959,15 @@ def test_ssd_scan_kernel_under_autograd(cuda):
     grads = {}
     for impl in (None, "ref"):
         leaves = [t.clone().requires_grad_(True) for t in (x, dt, A, B, C)]
-        before = ops.LAUNCHES["ssd_chunks"]
+        before = dict(ops.LAUNCHES)
         y = ops.ssd_scan(*leaves, chunk=32, impl=impl)
-        assert ops.LAUNCHES["ssd_chunks"] - before == (1 if impl is None else 0)
+        assert ops.LAUNCHES["ssd_chunks"] - before["ssd_chunks"] == (1 if impl is None else 0)
         (y * w).sum().backward()
+        assert ops.LAUNCHES["ssd_bwd"] - before["ssd_bwd"] == (1 if impl is None else 0)
         grads[impl] = [t.grad for t in leaves]
     for a, b in zip(grads[None], grads["ref"]):
-        assert a is not None and torch.equal(a, b)
+        assert a is not None
+        torch.testing.assert_close(a, b, rtol=0, atol=SSD_BWD_REL * float(b.abs().max()))
 
 
 @pytest.mark.parametrize("arch_id", ["starcoder2-3b", "mamba2-130m"])

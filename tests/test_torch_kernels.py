@@ -20,6 +20,7 @@ from repro_torch.kernels.flash_attention import flash_attention_cuda, launch_pla
 from repro_torch.kernels.int8_codec import int8_dequantize_cuda, int8_quantize_cuda
 from repro_torch.kernels.plan_grid import pareto_mask_cuda, plan_argmin_cuda
 from repro_torch.kernels.rbf_gram import rbf_gram_cuda
+from repro_torch.kernels.ssd_bwd import ssd_bwd_cuda
 from repro_torch.kernels.ssd_scan import ssd_chunks_cuda
 
 from test_torch_gpu import FLASH_CASES as GPU_FLASH_CASES
@@ -300,6 +301,49 @@ def test_cuda_wrappers_refuse_host_tensors(which):
     assert dict(ops.LAUNCHES) == before
 
 
+def _ssd_bwd_args(bh=2, nc=1, T=16, p=8, b=1, g=1, n=4):
+    f = torch.zeros
+    return dict(x=f((bh, nc, T, p)), dt=f((bh, nc, T)), a=f((bh, nc, T)), A=f((bh,)),
+                B=f((b, nc * T, g, n)), C=f((b, nc * T, g, n)), H=f((bh, nc, n, p)),
+                dy=f((bh, nc, T, p)), d_final=None)
+
+
+@pytest.mark.parametrize("fault", ["host", "dtype", "strided"])
+def test_ssd_bwd_wrapper_refuses_what_the_kernel_does_not_take(fault):
+    """As ``attention_bwd_cuda``: a host tensor, a dtype other than f32 or
+    a non-contiguous input raises ``ValueError`` before any launch (the
+    dtype and the layout are checked before the device, so each fault is
+    named on the host)."""
+    args = _ssd_bwd_args()
+    match = "CUDA tensor"
+    if fault == "dtype":
+        args["dy"], match = args["dy"].double(), "float32"
+    elif fault == "strided":
+        args["dy"], match = torch.zeros((2, 1, 8, 16)).transpose(-1, -2), "contiguous"
+    before = dict(ops.LAUNCHES)
+    with pytest.raises(ValueError, match=match):
+        ssd_bwd_cuda(**args, heads=2)
+    assert dict(ops.LAUNCHES) == before
+
+
+def test_ssd_scan_backward_on_the_host_is_the_plain_vjp():
+    """A CPU tensor's SSD backward is the VJP of the plain scan: the graph
+    saves the inputs only (no entry states), no kernel is counted, and its
+    gradients equal autograd through ``ref.ssd_scan_ref`` bit for bit."""
+    arrs = _ssd_inputs(2, 40, 4, 8, 2, 16, seed=5)
+    w = torch.from_numpy(np.random.default_rng(5).standard_normal((2, 40, 4, 8))
+                         .astype(np.float32))
+    got, want = ([torch.from_numpy(a).requires_grad_(True) for a in arrs] for _ in range(2))
+    before = dict(ops.LAUNCHES)
+    y = ops.ssd_scan(*got, chunk=16)
+    assert len(y.grad_fn.saved_tensors) == 6
+    (y * w).sum().backward()
+    assert dict(ops.LAUNCHES) == before
+    (ref.ssd_scan_ref(*want, chunk=16) * w).sum().backward()
+    for a, b in zip(got, want):
+        assert torch.equal(a.grad, b.grad)
+
+
 def test_ssd_head_slice_fills_the_card_in_the_fewest_waves():
     from repro_torch.kernels.ssd_scan import MAX_HEAD_SLICE, head_slice
 
@@ -318,7 +362,7 @@ def test_ssd_head_slice_fills_the_card_in_the_fewest_waves():
 def test_build_inputs_and_failure_mode(monkeypatch):
     names = [p.name for p in _build.sources()]
     assert names == ["attention_bwd.cu", "flash_attention.cu", "int8_codec.cu", "plan_grid.cu",
-                     "rbf_gram.cu", "ssd_scan.cu"]
+                     "rbf_gram.cu", "ssd_bwd.cu", "ssd_scan.cu"]
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert _build.BUILD_DIR.parts[-2:] == ("build", "repro_torch_kernels")
@@ -351,7 +395,7 @@ def test_reset_launches_zeroes_every_count():
         ops.reset_launches()
         assert set(ops.LAUNCHES) == {"rbf_gram", "plan_argmin", "pareto_mask",
                                      "flash_attention", "ssd_chunks", "int8_quantize",
-                                     "int8_dequantize", "attention_bwd"}
+                                     "int8_dequantize", "attention_bwd", "ssd_bwd"}
         assert all(v == 0 for v in ops.LAUNCHES.values())
     finally:
         ops.LAUNCHES.update(saved)
